@@ -27,57 +27,20 @@
 // coalesced.  Two instances: for D <= 32 the dimension's bound is 32 and
 // every loop over it is unrolled with a guard, so the per-thread vectors live
 // in registers; for 32 < D <= 128 run-time loops keep them in local memory
-// (slower, but it compiles in seconds: unrolling that one is quadratic in D).
-#include <cuda_runtime.h>
-#include <math.h>
+// (slower, but it compiles in seconds: unrolling that one is quadratic in D);
+// both live in whiten.cuh, shared with the background kernel (B4).
+#include "whiten.cuh"
 
 namespace {
+
+using gmmvi::LOG_2PI;
+using gmmvi::MAX_UNROLLED_D;
+using gmmvi::whiten;
 
 constexpr int TS = 32;  // samples per block (threadIdx.x)
 constexpr int G = 4;    // component groups per block (threadIdx.y)
 constexpr int NT = TS * G;
 constexpr int PARAM_BUDGET_FLOATS = 11 * 1024;  // 44 KB of staged parameters
-constexpr float LOG_2PI = 1.8378770664093453f;
-constexpr int MAX_UNROLLED_D = 32;
-
-// v <- y = L^{-1}(x - mu) in place, rows from last to first: row i reads
-// diff_0..diff_i, and rows below i have already stopped needing diff_i.
-// Returns |y|^2.
-template <int DMAX>
-__device__ __forceinline__ float whiten(const float* __restrict__ tri,
-                                        const float* __restrict__ mu,
-                                        const float (&x)[DMAX],
-                                        float (&v)[DMAX], int D) {
-  float maha = 0.f;
-  if constexpr (DMAX <= MAX_UNROLLED_D) {
-#pragma unroll
-    for (int j = 0; j < DMAX; ++j) {
-      v[j] = 0.f;
-      if (j < D) v[j] = x[j] - mu[j];
-    }
-#pragma unroll
-    for (int i = DMAX - 1; i >= 0; --i) {
-      if (i < D) {
-        const float* row = tri + i * (i + 1) / 2;
-        float yi = 0.f;
-#pragma unroll
-        for (int j = 0; j <= i; ++j) yi = fmaf(row[j], v[j], yi);
-        v[i] = yi;
-        maha = fmaf(yi, yi, maha);
-      }
-    }
-  } else {
-    for (int j = 0; j < D; ++j) v[j] = x[j] - mu[j];
-    for (int i = D - 1; i >= 0; --i) {
-      const float* row = tri + i * (i + 1) / 2;
-      float yi = 0.f;
-      for (int j = 0; j <= i; ++j) yi = fmaf(row[j], v[j], yi);
-      v[i] = yi;
-      maha = fmaf(yi, yi, maha);
-    }
-  }
-  return maha;
-}
 
 // acc += L^T (r y) with y in v.
 template <int DMAX>
@@ -100,29 +63,6 @@ __device__ __forceinline__ void add_back(const float* __restrict__ tri,
       const float* row = tri + i * (i + 1) / 2;
       for (int j = 0; j <= i; ++j) acc[j] = fmaf(row[j], ri, acc[j]);
     }
-  }
-}
-
-// Stage components [c0, c0 + nk) into shared memory.
-__device__ __forceinline__ void stage(const float* __restrict__ means,
-                                      const float* __restrict__ inv_chols,
-                                      const float* __restrict__ logw,
-                                      const float* __restrict__ logdets,
-                                      float* s_tri, float* s_mu, float* s_ld,
-                                      float* s_lw, int c0, int nk, int D,
-                                      int T, int tid) {
-  const int dd = D * D;
-  for (int idx = tid; idx < nk * dd; idx += NT) {
-    const int c = idx / dd, r = idx - c * dd;
-    const int i = r / D, j = r - i * D;
-    if (j <= i)
-      s_tri[c * T + i * (i + 1) / 2 + j] = inv_chols[(size_t)c0 * dd + idx];
-  }
-  for (int idx = tid; idx < nk * D; idx += NT)
-    s_mu[idx] = means[(size_t)c0 * D + idx];
-  for (int idx = tid; idx < nk; idx += NT) {
-    s_ld[idx] = logdets[c0 + idx];
-    s_lw[idx] = logw[c0 + idx];
   }
 }
 
@@ -159,8 +99,8 @@ density_kernel(const float* __restrict__ means,
   for (int c0 = 0; c0 < K; c0 += kc) {
     const int nk = min(kc, K - c0);
     __syncthreads();
-    stage(means, inv_chols, logw, logdets, s_tri, s_mu, s_ld, s_lw, c0, nk,
-          D, T, tid);
+    gmmvi::stage(means, inv_chols, logw, logdets, nullptr, s_tri, s_mu, s_ld,
+                 s_lw, c0, nk, D, T, tid, NT);
     __syncthreads();
     for (int c = g; c < nk; c += G) {
       const float maha = whiten<DMAX>(s_tri + c * T, s_mu + c * D, x, v, D);
@@ -206,8 +146,8 @@ density_kernel(const float* __restrict__ means,
     for (int c0 = 0; c0 < K; c0 += kc) {
       const int nk = min(kc, K - c0);
       __syncthreads();
-      stage(means, inv_chols, logw, logdets, s_tri, s_mu, s_ld, s_lw, c0, nk,
-            D, T, tid);
+      gmmvi::stage(means, inv_chols, logw, logdets, nullptr, s_tri, s_mu,
+                   s_ld, s_lw, c0, nk, D, T, tid, NT);
       __syncthreads();
       for (int c = g; c < nk; c += G) {
         const float* tri = s_tri + c * T;

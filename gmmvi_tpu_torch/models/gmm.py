@@ -144,6 +144,13 @@ def _kernel_args(state: GmmState):
     return state.means, state.inv_chols, logw, logdets
 
 
+def component_log_densities_fast(state: GmmState, samples: torch.Tensor
+                                 ) -> torch.Tensor:
+    """:func:`component_log_densities` in one pass through kernel B2 on the
+    card (the sample selector's ESS pass)."""
+    return log_densities_also_individual(state, samples)[1]
+
+
 def log_densities_also_individual(state: GmmState, samples: torch.Tensor):
     """(model log densities ``[N]``, component log densities ``[Kmax, N]``)
     in one pass: kernel B2 on the card."""

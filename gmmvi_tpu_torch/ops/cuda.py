@@ -5,7 +5,8 @@ compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kernels/`` (at the root of the checkout) the first time a kernel of
 it is launched, then loaded with ``ctypes``.  All sources build in
 parallel, one ``nvcc`` each.  A library's file name carries a hash of its
-source and flags, so an edited source never reuses a stale build.
+source, the shared headers (``*.cuh``) and the flags, so an edited source
+never reuses a stale build.
 
 Every launching wrapper adds one to its entry in :data:`LAUNCHES` where it
 launches its kernel, and nowhere else, so a run can show which kernels the
@@ -30,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches on CUDA tensors since the last reset
-LAUNCHES: Dict[str, int] = {"density_pack": 0, "densities": 0, "tr_kl": 0}
+LAUNCHES: Dict[str, int] = {"density_pack": 0, "densities": 0, "tr_kl": 0,
+                             "background_logpdf": 0, "more_grams": 0}
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -45,6 +47,14 @@ _SIGNATURES = {
         # etas, prec, rq, lin, rlin, old_inv_chols, means, klconst, kl, K, D,
         # stream
         "gmmvi_tr_kl": [_c_ptr] * 9 + [_c_int] * 2 + [_c_ptr],
+    },
+    "background.cu": {
+        # means, inv_chols, logw, logdets, x, out, U, N, D, stream
+        "gmmvi_background": [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr],
+    },
+    "more.cu": {
+        # inv_chols, means, w, y, x, gram, rhs, K, N, D, stream
+        "gmmvi_more_grams": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
     },
 }
 
@@ -69,7 +79,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    text = (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    """The build of ``source``, named by a hash of it, the shared headers
+    and the flags."""
+    text = (CSRC_DIR / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))) \
+        + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -122,6 +136,23 @@ def library(source: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[source] = lib
     return lib
+
+
+def check_tensors(tensors: Dict[str, tuple], device: torch.device) -> None:
+    """Each ``name: (tensor, shape)`` is float32, of that shape, on
+    ``device`` and row-major: a kernel wrapper raises rather than copy."""
+    for name, (t, shape) in tensors.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -34,29 +34,20 @@ LOG_2PI = math.log(2.0 * math.pi)
 MAX_D = 128
 
 
-def _check_inputs(means, inv_chols, log_weights, log_dets, samples):
+def check_inputs(means, inv_chols, log_weights, log_dets, samples,
+                 what: str = "density kernels"):
+    """Shapes, float32, one device, row-major, and D <= 128; shared with
+    the background kernel (B4)."""
     k, d = means.shape
     n = samples.shape[0]
-    expected = {"means": (k, d), "inv_chols": (k, d, d),
-                "log_weights": (k,), "log_dets": (k,), "samples": (n, d)}
-    dev = samples.device
-    for name, t in zip(expected, (means, inv_chols, log_weights, log_dets,
-                                  samples)):
-        if tuple(t.shape) != expected[name]:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{expected[name]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, samples on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    cuda.check_tensors({
+        "means": (means, (k, d)), "inv_chols": (inv_chols, (k, d, d)),
+        "log_weights": (log_weights, (k,)), "log_dets": (log_dets, (k,)),
+        "samples": (samples, (n, d))}, samples.device)
     if d > MAX_D:
         raise NotImplementedError(
-            f"density kernels take D <= {MAX_D} (got {d}); the large-D "
+            f"{what}: D <= {MAX_D} only (got {d}); the large-D "
             "kernels (B5/B6) are not ported yet")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
 
 
 def _plain(means, inv_chols, log_weights, log_dets, samples, want_grads):
@@ -108,7 +99,7 @@ def _launch(means, inv_chols, log_weights, log_dets, samples, want_grads):
 
 def density_pack(means, inv_chols, log_weights, log_dets, samples):
     """B1: (comp [K, N], model [N], grads [N, D])."""
-    _check_inputs(means, inv_chols, log_weights, log_dets, samples)
+    check_inputs(means, inv_chols, log_weights, log_dets, samples)
     if samples.device.type == "cpu":
         return density_pack_plain(means, inv_chols, log_weights, log_dets,
                                   samples)
@@ -117,7 +108,7 @@ def density_pack(means, inv_chols, log_weights, log_dets, samples):
 
 def densities(means, inv_chols, log_weights, log_dets, samples):
     """B2: (comp [K, N], model [N])."""
-    _check_inputs(means, inv_chols, log_weights, log_dets, samples)
+    check_inputs(means, inv_chols, log_weights, log_dets, samples)
     if samples.device.type == "cpu":
         return densities_plain(means, inv_chols, log_weights, log_dets,
                                samples)

@@ -64,24 +64,13 @@ def _check(etas: torch.Tensor, inp: TrKlInputs):
     shapes = {"prec": (k, d, d), "reward_quad": (k, d, d), "lin": (k, d),
               "reward_lin": (k, d), "old_inv_chols": (k, d, d),
               "means": (k, d), "kl_const": (k,)}
-    if tuple(etas.shape) != (k,):
-        raise ValueError(f"etas: shape {tuple(etas.shape)}, expected {(k,)}")
-    for name, t in [("etas", etas)] + list(zip(inp._fields, inp)):
-        if name != "etas" and tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{shapes[name]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
-        if t.device != etas.device:
-            raise ValueError(f"{name} is on {t.device}, etas on "
-                             f"{etas.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    cuda.check_tensors(
+        {"etas": (etas, (k,)),
+         **{name: (t, shapes[name]) for name, t in zip(inp._fields, inp)}},
+        etas.device)
     if d > MAX_D:
         raise NotImplementedError(
             f"the trust-region KL kernel takes D <= {MAX_D} (got {d})")
-    if etas.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {etas.device}")
 
 
 def tr_kl_plain(etas: torch.Tensor, inp: TrKlInputs) -> torch.Tensor:

@@ -4,10 +4,13 @@
 
 The learner state is one :class:`TrainState` with the same field paths as
 the JAX package's (``model.means``, ``db.write_pos``, ...).  An iteration
-runs eagerly: propose fresh samples, evaluate the target, store them and
-take the current model's density pack (kernel B1 on the card), estimate the
-natural gradient, update components (kernel B3 per bisection trip) and
-weights (kernel B2), then adapt the number of components.
+runs eagerly: propose fresh samples (with sample reuse, after an ESS pass
+over the newest stored samples: kernels B4 and B2 on the card), evaluate the
+target, store them and take the current model's density pack (kernel B1;
+B4 again for the older generating distributions), estimate the natural
+gradient (Stein, or MORE through kernel B8), update components (kernel B3
+per bisection trip) and weights (kernel B2), then adapt the number of
+components.
 
 Every random draw of a step comes from the instance's ``torch.Generator``
 unless the caller passes a :class:`StepDraws` with its own.  The iteration
@@ -78,8 +81,9 @@ class GMMVI:
 
     def __init__(self, target_distribution: LNPDF, initial_state: TrainState,
                  temperature: float, selector_cfg: SelectorConfig,
-                 estimator_cfg: dict, component_stepsize_type: str,
-                 component_stepsize_cfg: dict, weight_updater_cfg: dict,
+                 estimator_type: str, estimator_cfg: dict,
+                 component_stepsize_type: str, component_stepsize_cfg: dict,
+                 weight_updater_type: str, weight_updater_cfg: dict,
                  weight_stepsize_type: str, weight_stepsize_cfg: dict,
                  vips_cfg: Optional[VipsConfig], seed: int,
                  device: torch.device):
@@ -87,9 +91,11 @@ class GMMVI:
         self.state = initial_state
         self.temperature = float(temperature)
         self.selector_cfg = selector_cfg
+        self.estimator_type = estimator_type
         self.estimator_cfg = dict(estimator_cfg)
         self.component_stepsize_type = component_stepsize_type
         self.component_stepsize_cfg = dict(component_stepsize_cfg)
+        self.weight_updater_type = weight_updater_type
         self.weight_updater_cfg = dict(weight_updater_cfg)
         self.weight_stepsize_type = weight_stepsize_type
         self.weight_stepsize_cfg = dict(weight_stepsize_cfg)
@@ -126,7 +132,12 @@ class GMMVI:
     # Phases
     # ------------------------------------------------------------------
     def _eval_target(self, samples: torch.Tensor):
-        """(lnpdfs, grads) of the target at ``samples``."""
+        """(lnpdfs, grads) of the target at ``samples``; the grads are zeros
+        when the estimator does not read them (MORE), as in the JAX
+        package."""
+        if self.estimator_type != "Stein":
+            return (self.target_distribution.log_density(samples),
+                    torch.zeros_like(samples))
         return self.target_distribution.log_density_and_grad(samples)
 
     def _propose_phase(self, state: TrainState, draws: StepDraws):
@@ -161,14 +172,21 @@ class GMMVI:
         meta = meta.replace(stepsizes=torch.where(model.mask, new_stepsizes,
                                                   meta.stepsizes))
         # 2. natural-gradient estimate
-        est = est_ops.stein_estimate(
-            model, window.samples, window.valid, window.mapping,
-            window.background_log_pdfs, window.target_lnpdfs,
-            window.target_grads,
+        est_kw = dict(
             use_self_normalized_importance_weights=self.estimator_cfg[
                 "use_self_normalized_importance_weights"],
             only_use_own_samples=self.estimator_cfg["only_use_own_samples"],
             pack=pack, newest_mask=window.newest_mask)
+        if self.estimator_type == "MORE":
+            est = est_ops.more_estimate(
+                model, window.samples, window.valid, window.mapping,
+                window.background_log_pdfs, window.target_lnpdfs,
+                meta.l2_regularizers, **est_kw)
+        else:
+            est = est_ops.stein_estimate(
+                model, window.samples, window.valid, window.mapping,
+                window.background_log_pdfs, window.target_lnpdfs,
+                window.target_grads, **est_kw)
         # 3. component update
         model, meta = upd_ops.trust_region_update(
             model, meta, est.expected_hessians_neg,
@@ -183,7 +201,7 @@ class GMMVI:
             window.background_log_pdfs, window.target_lnpdfs,
             self.temperature,
             self.weight_updater_cfg["use_self_normalized_importance_weights"])
-        model, meta = w_ops.trust_region_weight_update(
+        model, meta = w_ops.WEIGHT_UPDATERS[self.weight_updater_type](
             model, meta, elr, wstep.stepsize, self.temperature)
         return model, meta, wstep
 
@@ -292,18 +310,25 @@ class GMMVI:
                     "(num_prior_samples > 0) are not ported yet")
 
         w_total = sel_ops.total_window_size(selector_cfg, kmax)
+        # with reuse, old samples need their generating distributions kept
+        default_ring = (min(reused + 4, int(tpu_cfg.get("max_dist_ring_iters",
+                                                        64)))
+                        if reused > 0 else 2)
         num_db_cand = (vips_cfg.num_database_samples if vips_cfg is not None
                        else 0)
         reservoir = int(tpu_cfg.get("reservoir_capacity",
                                     max(1024, min(num_db_cand, 16384))))
         if vips_cfg is not None and vips_cfg.num_database_samples > reservoir:
             vips_cfg = vips_cfg._replace(num_database_samples=reservoir)
+        keep_samples = bool(config.get("use_sample_database", True))
         db = db_ops.create_sample_db(
             dim=d, max_components=kmax, capacity=w_total,
-            dist_ring_iters=int(tpu_cfg.get("dist_ring_iters", 2)),
+            dist_ring_iters=int(tpu_cfg.get("dist_ring_iters", default_ring)),
             reservoir_capacity=reservoir, diagonal=model.diagonal,
-            keep_samples=bool(config.get("use_sample_database", True)),
-            device=dev)
+            keep_samples=keep_samples, device=dev)
+        if not keep_samples:
+            # no database: no reuse, as the JAX package configures it
+            selector_cfg = selector_cfg._replace(reused_samples_per_component=0)
 
         if meta is None:
             meta = meta_ops.create_meta_state(
@@ -328,25 +353,26 @@ class GMMVI:
         return GMMVI(
             target_distribution=target_distribution, initial_state=state,
             temperature=config["temperature"], selector_cfg=selector_cfg,
-            estimator_cfg=est_cfg,
+            estimator_type=config["ng_estimator_type"], estimator_cfg=est_cfg,
             component_stepsize_type=config[
                 "component_stepsize_adapter_type"],
             component_stepsize_cfg=config[
                 "component_stepsize_adapter_config"],
+            weight_updater_type=config["weight_updater_type"],
             weight_updater_cfg=config["weight_updater_config"],
             weight_stepsize_type=config["weight_stepsize_adapter_type"],
             weight_stepsize_cfg=config["weight_stepsize_adapter_config"],
             vips_cfg=vips_cfg, seed=seed, device=dev)
 
 
-# module slot -> the one setting this slice of the port supports
+# module slot -> the settings the port supports so far
 _SUPPORTED = {
-    "ng_estimator_type": "Stein",
-    "sample_selector_type": "component-based",
-    "ng_based_updater_type": "trust-region",
-    "component_stepsize_adapter_type": "improvement-based",
-    "weight_updater_type": "trust-region",
-    "weight_stepsize_adapter_type": "improvement_based",
+    "ng_estimator_type": ("Stein", "MORE"),
+    "sample_selector_type": ("component-based",),
+    "ng_based_updater_type": ("trust-region",),
+    "component_stepsize_adapter_type": ("improvement-based",),
+    "weight_updater_type": ("trust-region", "direct"),
+    "weight_stepsize_adapter_type": ("improvement_based", "fixed"),
 }
 
 # tpu.* settings whose other values select paths not ported yet
@@ -361,11 +387,11 @@ _SUPPORTED_TPU = {
 def _check_supported(config: dict) -> None:
     """Raise NotImplementedError naming the first module or setting of
     ``config`` that this slice of the port does not have."""
-    for key, value in _SUPPORTED.items():
-        if config[key] != value:
+    for key, allowed in _SUPPORTED.items():
+        if config[key] not in allowed:
             raise NotImplementedError(
                 f"{key}: '{config[key]}' is not ported yet (the port has "
-                f"'{value}')")
+                f"{allowed})")
     if config["num_component_adapter_type"] not in ("adaptive",):
         raise NotImplementedError(
             f"num_component_adapter_type: "

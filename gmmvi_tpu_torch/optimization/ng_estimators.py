@@ -1,7 +1,9 @@
-"""Natural-gradient estimation: the Stein (first-order) estimator.
+"""Natural-gradient estimation: the Stein (first-order) and MORE
+(zero-order) estimators.
 
 (JAX counterpart: gmmvi_tpu/optimization/ng_estimators.py,
-``stein_estimate`` with self-normalized importance weights)
+``stein_estimate`` with self-normalized importance weights and
+``more_estimate``)
 
 For every component o, the negated expected gradient and Hessian of the log
 ratio ``log p(x) - log q(x)`` from one window of samples.  The Hessian is
@@ -12,7 +14,12 @@ always taken in moment form from the density pack's mixture gradients:
 
 centred on the active means' centroid ``c`` against float cancellation, so
 the ``[Kmax, N, D]`` precision-times-difference array is never formed.
-Standard importance weights and the MORE estimator are not ported yet.
+The Stein estimator with standard importance weights is not ported yet.
+
+MORE fits every component's quadratic surrogate of the log ratios by
+importance-weighted ridge regression: the weighted normal equations of all
+components come from kernel B8 (``ops/more.py``) in one pass, then one
+batched Cholesky solve and unwhitening (``ops/quadratic.py``).
 """
 from __future__ import annotations
 
@@ -20,13 +27,40 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gmmvi_tpu_torch.models.gmm import DensityPack, GmmState, density_pack
+from gmmvi_tpu_torch.models.gmm import (DensityPack, GmmState, density_pack,
+                                        log_densities_also_individual)
+from gmmvi_tpu_torch.ops.more import more_grams
+from gmmvi_tpu_torch.ops.quadratic import solve_quadratic_normal_eqs
 from gmmvi_tpu_torch.ops.stable import masked_logsumexp
 
 
 class NgEstimate(NamedTuple):
     expected_hessians_neg: torch.Tensor   # [Kmax, D, D]
     expected_gradients_neg: torch.Tensor  # [Kmax, D]
+
+
+def _per_component_log_iw(model, comp_log_densities, background, sample_mask,
+                          mapping, only_use_own_samples, newest_mask):
+    """Raw log importance weights ``log q(x|o) - log bg(x)`` ``[Kmax, N]``
+    with their mask.  With ``only_use_own_samples`` each component sees only
+    its own newest samples, with log IW = 0."""
+    log_iw = comp_log_densities - background[None, :]
+    mask = sample_mask[None, :].expand(log_iw.shape)
+    if only_use_own_samples:
+        own = mapping[None, :] == torch.arange(
+            model.max_components, device=mapping.device)[:, None]
+        if newest_mask is not None:
+            own = own & newest_mask[None, :]
+        log_iw = torch.zeros_like(log_iw)
+        mask = mask & own
+    return log_iw, mask
+
+
+def _self_normalized(log_iw, mask):
+    """Self-normalized weights, normalized twice as in the reference."""
+    log_w = log_iw - masked_logsumexp(log_iw, mask=mask, dim=1, keepdim=True)
+    w = torch.where(mask, torch.exp(log_w), 0.0)
+    return w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-38)
 
 
 def stein_estimate(
@@ -53,20 +87,10 @@ def stein_estimate(
         pack = density_pack(model, samples)
     log_ratio_grads = target_grads - pack.model_grads             # [N, D]
 
-    log_iw = pack.component_log_densities - background[None, :]
-    mask = sample_mask[None, :].expand(log_iw.shape)
-    if only_use_own_samples:
-        # each component sees only its own newest samples, with log IW = 0
-        own = mapping[None, :] == torch.arange(
-            model.max_components, device=mapping.device)[:, None]
-        if newest_mask is not None:
-            own = own & newest_mask[None, :]
-        log_iw = torch.zeros_like(log_iw)
-        mask = mask & own
-
-    log_w = log_iw - masked_logsumexp(log_iw, mask=mask, dim=1, keepdim=True)
-    w = torch.where(mask, torch.exp(log_w), 0.0)
-    w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-38)
+    log_iw, mask = _per_component_log_iw(
+        model, pack.component_log_densities, background, sample_mask,
+        mapping, only_use_own_samples, newest_mask)
+    w = _self_normalized(log_iw, mask)
 
     grad = w @ log_ratio_grads                                    # [K, D]
     lam = model.inv_chols.mT @ model.inv_chols                    # [K, D, D]
@@ -81,3 +105,42 @@ def stein_estimate(
     hess = s_mom @ lam - grad[:, :, None] * lam_mu[:, None, :]
     hess = 0.5 * (hess + hess.mT)
     return NgEstimate(-hess, -grad)
+
+
+def more_estimate(
+    model: GmmState,
+    samples: torch.Tensor,         # [N, D]
+    sample_mask: torch.Tensor,     # [N] bool
+    mapping: torch.Tensor,         # [N] generating slot
+    background: torch.Tensor,      # [N] log density of the sampling mixture
+    target_lnpdfs: torch.Tensor,   # [N]
+    l2_regularizers: torch.Tensor,  # [Kmax]
+    use_self_normalized_importance_weights: bool = True,
+    only_use_own_samples: bool = False,
+    pack: Optional[DensityPack] = None,
+    newest_mask: Optional[torch.Tensor] = None,
+) -> NgEstimate:
+    """Zero-order estimate through a quadratic surrogate of the log ratios
+    ``log p(x) - log q(x)`` fitted per component: ``Hneg = quad``,
+    ``gneg = quad mu - lin``.  Standard importance weights are the raw
+    ``exp(log_iw)``, as in the reference (it overflows past about 88)."""
+    if pack is None:
+        model_densities, comp_log_densities = log_densities_also_individual(
+            model, samples)
+    else:
+        model_densities = pack.model_log_densities
+        comp_log_densities = pack.component_log_densities
+    log_ratios = target_lnpdfs - model_densities
+    log_iw, mask = _per_component_log_iw(
+        model, comp_log_densities, background, sample_mask, mapping,
+        only_use_own_samples, newest_mask)
+    if use_self_normalized_importance_weights:
+        w = _self_normalized(log_iw, mask)
+    else:
+        w = torch.where(mask, torch.exp(log_iw), 0.0)
+    gram, rhs = more_grams(model.inv_chols, model.means, w, log_ratios,
+                           samples)
+    quad, lin, _ = solve_quadratic_normal_eqs(gram, rhs, l2_regularizers,
+                                              model.means, model.inv_chols)
+    gneg = torch.einsum("kij,kj->ki", quad, model.means) - lin
+    return NgEstimate(quad, gneg)

@@ -16,8 +16,15 @@ every write stays in bounds, where the JAX package leans on clamped gathers
 and dropped scatters.  Updates return new tensors and leave their inputs as
 they were, like the JAX functions.  Random draws (reservoir slots, accept
 uniforms, candidate permutation) come in as tensors, so a caller can inject
-any draws it likes.  Sample reuse (old generating distributions in the
-window) is not ported yet.
+any draws it likes.
+
+With sample reuse the window holds samples of older iterations, whose
+generating distributions are read back from the distribution ring: the
+distinct ones are counted, the ``max_background_dists`` most used kept (in
+``lax.top_k``'s order) and their count-weighted mixture evaluated at every
+sample by kernel B4 (``ops/background.py``, whose plain version is the JAX
+package's ``_dist_log_pdfs`` chain).  Counts and the selection table are
+scatters into spill-binned tensors, so no step reads the device.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import torch
 
 from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.models.gmm import DensityPack, GmmState, density_pack
+from gmmvi_tpu_torch.ops.background import background_logpdf
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 
 
@@ -228,20 +236,84 @@ def _gather_window(db: SampleDbState, window: int,
             comp, in_range & fresh, row * kmax + comp, it)
 
 
+def _gather_dists(db: SampleDbState, keys: torch.Tensor):
+    """(means, inv_chols, log_dets) of the ring's distributions at flat keys
+    ``row * Kmax + comp``."""
+    d = db.dist_means.shape[-1]
+    keys = keys.long()
+    chols = db.dist_chols.reshape(-1, d, d)[keys]
+    log_dets = torch.sum(torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)),
+                         -1)
+    return (db.dist_means.reshape(-1, d)[keys],
+            db.dist_inv_chols.reshape(-1, d, d)[keys], log_dets)
+
+
+def _count(bins: torch.Tensor, size: int) -> torch.Tensor:
+    """``[size]`` float counts of ``bins``; entries equal to ``size`` go to
+    a spill bin (a scatter-add of ones: exact, and unlike bincount no host
+    sync)."""
+    bins = bins.long()
+    return torch.zeros(size + 1, dtype=torch.float32,
+                       device=bins.device).index_add_(
+        0, bins, torch.ones_like(bins, dtype=torch.float32))[:size]
+
+
+def _select_dists(counts: torch.Tensor, u: int, dist_key: torch.Tensor):
+    """The ``u`` most used distributions in ``lax.top_k``'s order (by count,
+    ties to the lower key): ``(top_counts, top_keys, sel_mask, selected)``
+    where ``selected`` says for each sample whether its distribution is among
+    them."""
+    nkeys = counts.shape[0]
+    top_keys = torch.sort(counts, descending=True, stable=True).indices[:u]
+    top_counts = counts[top_keys]
+    sel_mask = top_counts > 0
+    table = torch.zeros(nkeys + 1, dtype=torch.bool, device=counts.device)
+    table[torch.where(sel_mask, top_keys, nkeys)] = True
+    selected = table[torch.clamp(dist_key.long(), max=nkeys)]
+    return top_counts, top_keys, sel_mask, selected
+
+
+def get_newest_samples(db: SampleDbState, window: int,
+                       n_requested: torch.Tensor, max_background_dists: int
+                       ) -> SampleWindow:
+    """Up to ``n_requested`` newest valid samples within a ``window``-sized
+    frame, with count-weighted background densities over their generating
+    distributions; samples of distributions beyond the
+    ``max_background_dists`` most used are masked out."""
+    kmax, r = db.max_components, db.ring_iters
+    samples, lnpdfs, grads, comp, valid, dist_key, sample_iters = \
+        _gather_window(db, window, n_requested)
+    nkeys = r * kmax
+    counts = _count(torch.where(valid, dist_key, nkeys), nkeys)
+    top_counts, top_keys, sel_mask, selected = _select_dists(
+        counts, min(max_background_dists, nkeys), dist_key)
+    valid = valid & selected
+    total = torch.sum(torch.where(sel_mask, top_counts, 0.0))
+    log_weights = torch.where(
+        sel_mask, torch.log(top_counts) - torch.log(torch.clamp(total,
+                                                                min=1.0)),
+        NEG_INF)
+    means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
+    bg = background_logpdf(means_u, inv_u, log_weights, log_dets_u, samples)
+    return SampleWindow(
+        samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
+        target_grads=grads, background_log_pdfs=bg, valid=valid,
+        num_valid=valid.sum(dtype=torch.int32), sample_iters=sample_iters)
+
+
 def get_newest_samples_fused(db: SampleDbState, window: int,
                              n_requested: torch.Tensor,
                              max_background_dists: int, model: GmmState,
                              iteration: int, any_old_dists: bool
                              ) -> Tuple[SampleWindow, DensityPack]:
     """The newest window and the current model's density pack over it
-    (kernel B1 on the card).  Without sample reuse the window holds only
-    this iteration's samples, whose generating distributions are the
-    current components, so the background mixture is assembled from the
-    pack's component densities with count weights."""
-    if any_old_dists:
-        raise NotImplementedError(
-            "sample reuse (old generating distributions in the window, the "
-            "background pass over the distribution ring) is not ported yet")
+    (kernel B1 on the card).  Samples drawn at ``iteration`` came from the
+    current components, so their part of the background mixture is
+    assembled from the pack's component densities with count weights.  With
+    sample reuse (``any_old_dists``) the older generating distributions are
+    selected as in :func:`get_newest_samples` (``max_background_dists``
+    bounds only them) and evaluated by kernel B4, and the two halves are
+    combined with ``logaddexp``."""
     kmax, r = db.max_components, db.ring_iters
     samples, lnpdfs, grads, comp, valid, dist_key, sample_iters = \
         _gather_window(db, window, n_requested)
@@ -249,21 +321,41 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
 
     is_cur = torch.div(dist_key, kmax, rounding_mode="floor") \
         == iteration % r
-    # per-slot counts of current samples; other rows go to a spill bin
-    # (a scatter-add of ones: exact, and unlike bincount no host sync)
-    bins = torch.where(valid & is_cur, comp, kmax).long()
-    counts_cur = torch.zeros(kmax + 1, dtype=torch.float32,
-                             device=bins.device).index_add_(
-        0, bins, torch.ones_like(bins, dtype=torch.float32))[:kmax]
-    total = counts_cur.sum()
-    log_w_cur = torch.where(
-        counts_cur > 0,
-        torch.log(torch.clamp(counts_cur, min=1.0))
-        - torch.log(torch.clamp(total, min=1.0)),
-        NEG_INF)
-    bg = masked_logsumexp(pack.component_log_densities + log_w_cur[:, None],
-                          mask=(counts_cur > 0)[:, None], dim=0)
-    valid = valid & is_cur
+    counts_cur = _count(torch.where(valid & is_cur, comp, kmax), kmax)
+    if not any_old_dists:
+        total = counts_cur.sum()
+        log_w_cur = torch.where(
+            counts_cur > 0,
+            torch.log(torch.clamp(counts_cur, min=1.0))
+            - torch.log(torch.clamp(total, min=1.0)),
+            NEG_INF)
+        bg = masked_logsumexp(
+            pack.component_log_densities + log_w_cur[:, None],
+            mask=(counts_cur > 0)[:, None], dim=0)
+        valid = valid & is_cur
+    else:
+        nkeys = r * kmax
+        counts = _count(torch.where(valid & ~is_cur, dist_key, nkeys), nkeys)
+        top_counts, top_keys, sel_mask, selected = _select_dists(
+            counts, min(max_background_dists, nkeys), dist_key)
+        valid = valid & (is_cur | selected)
+        total = torch.sum(torch.where(sel_mask, top_counts, 0.0)) \
+            + counts_cur.sum()
+        log_total = torch.log(torch.clamp(total, min=1.0))
+        log_w_cur = torch.where(
+            counts_cur > 0,
+            torch.log(torch.clamp(counts_cur, min=1.0)) - log_total, NEG_INF)
+        log_w_old = torch.where(sel_mask, torch.log(top_counts) - log_total,
+                                NEG_INF)
+        means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
+        # all U rows: the kernel skips the unselected ones, so the JAX
+        # package's two-size ladder (a cond on the live count) is not needed
+        bg_old = background_logpdf(means_u, inv_u, log_w_old, log_dets_u,
+                                   samples)
+        bg_cur = masked_logsumexp(
+            pack.component_log_densities + log_w_cur[:, None],
+            mask=(counts_cur > 0)[:, None], dim=0)
+        bg = torch.logaddexp(bg_cur, bg_old)
     win = SampleWindow(
         samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
         target_grads=grads, background_log_pdfs=bg, valid=valid,

@@ -1,14 +1,17 @@
-"""Sample selection, VIPS (component-based) without sample reuse.
+"""Sample selection, VIPS (component-based), with or without sample reuse.
 
 (JAX counterpart: gmmvi_tpu/optimization/sample_selectors.py)
 
-:func:`propose` draws a full ``[Kmax, n_des]`` batch of fresh samples with a
-validity mask; the target is evaluated between :func:`propose` and
-:func:`finalize_fused`, which stores the valid samples and returns the
-window with the current model's density pack.  The standard-normal draws
-come in as ``eps``, so a caller can inject them.  Sample reuse (the ESS
-pass over old samples) and the mixture-based (Lin) selector are not ported
-yet.
+:func:`propose` takes the newest ``reused * Kmax`` samples of the database
+(with their background densities, kernel B4 on the card), estimates each
+component's effective sample size from self-normalized importance weights
+(kernel B2 for the component densities) and draws a full ``[Kmax, n_des]``
+batch of fresh samples of which the first ``max(1, n_des - n_eff)`` per
+active component are valid.  The target is evaluated between
+:func:`propose` and :func:`finalize_fused`, which stores the valid samples
+and returns the window with the current model's density pack.  The
+standard-normal draws come in as ``eps``, so a caller can inject them.  The
+mixture-based (Lin) selector is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from gmmvi_tpu_torch.models import gmm as gmm_ops
 from gmmvi_tpu_torch.models.gmm import GmmState
 from gmmvi_tpu_torch.optimization import sample_db as db_ops
 from gmmvi_tpu_torch.optimization.sample_db import SampleDbState
+from gmmvi_tpu_torch.ops.stable import masked_logsumexp
 
 
 class SelectorConfig(NamedTuple):
@@ -42,6 +46,20 @@ class Proposal(NamedTuple):
     num_reused: torch.Tensor  # 0-d int32
 
 
+def effective_samples(log_densities: torch.Tensor, background: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """``[K]`` int32 ESS ``floor(1 / sum w^2)`` from self-normalized
+    importance weights of ``log_densities [K, W]`` against the background,
+    in the JAX package's order (masked logsumexp, exp, sum of squares)."""
+    log_w = log_densities - background[None, :]
+    mask = valid[None, :].expand(log_w.shape)
+    log_w = log_w - masked_logsumexp(log_w, mask=mask, dim=1, keepdim=True)
+    w = torch.where(mask, torch.exp(log_w), 0.0)
+    denom = torch.sum(torch.square(w), dim=1)
+    n_eff = torch.where(denom > 0, 1.0 / torch.clamp(denom, min=1e-38), 0.0)
+    return torch.floor(n_eff).to(torch.int32)
+
+
 def reuse_window_size(cfg: SelectorConfig, max_components: int) -> int:
     return cfg.reused_samples_per_component * max_components
 
@@ -56,27 +74,40 @@ def check_supported(cfg: SelectorConfig) -> None:
     if not cfg.is_vips:
         raise NotImplementedError(
             "the mixture-based (Lin) sample selector is not ported yet")
-    if cfg.reused_samples_per_component > 0:
-        raise NotImplementedError(
-            "sample reuse (ratio_reused_samples_to_desired > 0) is not "
-            "ported yet")
 
 
 def propose(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
             eps: torch.Tensor) -> Proposal:
-    """VIPS proposal: ``n_des`` draws ``mu_k + L_k eps`` per slot from the
-    standard-normal ``eps`` ``[Kmax, n_des, D]``; every active slot's draws
-    are valid (no reuse means no effective samples to subtract)."""
+    """VIPS proposal: the ESS pass over the reuse window, then ``n_des``
+    draws ``mu_k + L_k eps`` per slot from the standard-normal ``eps``
+    ``[Kmax, n_des, D]``, of which the first ``max(1, n_des - n_eff_k)`` of
+    every active slot are valid."""
     check_supported(cfg)
     kmax, n_des = model.max_components, cfg.desired_samples_per_component
+    dev = model.device
+    w_reuse = reuse_window_size(cfg, kmax)
+    if w_reuse > 0:
+        win = db_ops.get_newest_samples(
+            db, w_reuse, cfg.reused_samples_per_component * model.num_active,
+            cfg.max_background_dists)
+        num_reused = win.num_valid
+        n_eff = effective_samples(
+            gmm_ops.component_log_densities_fast(model, win.samples),
+            win.background_log_pdfs, win.valid)
+        n_eff = torch.where(win.num_valid > 0, n_eff, 0)
+    else:
+        num_reused = torch.zeros((), dtype=torch.int32, device=dev)
+        n_eff = torch.zeros((kmax,), dtype=torch.int32, device=dev)
+    counts = torch.where(model.mask, torch.clamp(n_des - n_eff, min=1), 0)
     fresh = gmm_ops.sample_from_components(model, eps)      # [Kmax, n, D]
-    valid = model.mask[:, None].expand(kmax, n_des)
-    mapping = torch.arange(kmax, dtype=torch.int32, device=model.device)
+    col = torch.arange(n_des, device=dev)
+    valid = (col[None, :] < counts[:, None]) & model.mask[:, None]
+    mapping = torch.arange(kmax, dtype=torch.int32, device=dev)
     return Proposal(
         samples=fresh.reshape(-1, model.num_dimensions),
         valid=valid.reshape(-1),
         mapping=mapping[:, None].expand(kmax, n_des).reshape(-1),
-        num_reused=torch.zeros((), dtype=torch.int32, device=model.device),
+        num_reused=num_reused,
     )
 
 

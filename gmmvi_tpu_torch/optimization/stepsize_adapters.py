@@ -1,9 +1,11 @@
 """Stepsize adaptation for the component updates and the weight update.
 
 (JAX counterpart: gmmvi_tpu/optimization/stepsize_adapters.py, the
-improvement-based adapters: codename letters R and N)
+improvement-based adapters, codename letters R and N, and the fixed weight
+stepsize, X)
 
-The fixed and decaying adapters are not ported yet.
+The decaying adapters and the fixed component stepsize are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -72,7 +74,15 @@ def improvement_based_weight_stepsize(state: WeightStepsizeState,
                          prev_elbo=elbo)
 
 
+def fixed_weight_stepsize(state: WeightStepsizeState, model: GmmState,
+                          meta: MetaState, config: dict
+                          ) -> WeightStepsizeState:
+    """The stepsize stays at its initial value."""
+    return state
+
+
 # the weight adapter's name uses an underscore, as in the reference configs
 WEIGHT_STEPSIZE_ADAPTERS = {
+    "fixed": fixed_weight_stepsize,
     "improvement_based": improvement_based_weight_stepsize,
 }

@@ -1,14 +1,14 @@
-"""Mixture-weight updates: the KL trust-region update.
+"""Mixture-weight updates: the direct update and the KL trust-region update.
 
 (JAX counterpart: gmmvi_tpu/optimization/weight_updaters.py,
-``expected_log_ratios`` with self-normalized weights and
-``trust_region_weight_update``)
+``expected_log_ratios`` with self-normalized weights,
+``direct_weight_update`` and ``trust_region_weight_update``)
 
 The expected log ratios are taken under the updated components (kernel B2
 on the card).  The weight search is the reference's log-space bisection
 over the tempered-softmax stepsize, at most 50 trips; its loop runs on the
-host and reads one "done" flag per trip.  The direct weight update and
-standard importance weights are not ported yet.
+host and reads one "done" flag per trip.  Standard importance weights are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -68,6 +68,16 @@ def _apply_new_log_weights(model: GmmState, meta: MetaState,
     return model, meta
 
 
+def direct_weight_update(model: GmmState, meta: MetaState,
+                         elr: torch.Tensor, stepsize, temperature: float):
+    """``log w' = log w + (stepsize / T) E[log ratio]``, normalized and
+    floored at 1e-30; nothing changes when only one component is active."""
+    unnormalized = model.log_weights + (stepsize / temperature) * elr
+    lw = unnormalized - masked_logsumexp(unnormalized, mask=model.mask, dim=0)
+    lw = torch.clamp(lw, min=LOG_WEIGHT_FLOOR)
+    return _apply_new_log_weights(model, meta, lw)
+
+
 def _tr_weight_kl(eta, log_weights, mask, rewards, temperature):
     """Closed-form tempered-softmax update and its KL to the current
     weights."""
@@ -123,3 +133,9 @@ def trust_region_weight_update(model: GmmState, meta: MetaState,
     new_lw = torch.where(converged, lw,
                          torch.where(upper_ok, lw_u, log_weights))
     return _apply_new_log_weights(model, meta, new_lw)
+
+
+WEIGHT_UPDATERS = {
+    "direct": direct_weight_update,
+    "trust-region": trust_region_weight_update,
+}

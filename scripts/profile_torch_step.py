@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Where one flagship step of the PyTorch port spends its time on the card.
+"""Where one step of the PyTorch port spends its time on the card.
 
-Builds the flagship (SAMTRON on the 20-D Student-T mixture, 45 components
-padded to 48, 200 samples per component, as ``chip_smoke.py`` does), runs
-warm-up steps, then traces ``--steps`` steps with ``torch.profiler``.
-Writes the profiler's table (sorted by device time) to
-``<out-dir>/profile_torch_step.txt`` and prints one JSON line: wall ms
-per step, device-busy ms per step (the sum of kernel and copy times; one
-stream, so they do not overlap), the idle share, device operations (kernels
-and copies) and device-to-host copies per step, and device ms per step for
-the port's three kernels and for the largest other groups.
+Builds a main path as ``chip_smoke.py`` does (``--codename SAMTRON``, the
+flagship: the 20-D Student-T mixture, 45 components padded to 48, 200
+samples per component; or ``ZAMTRUX``, VIPS with sample reuse at the same
+widths), runs warm-up steps, then traces ``--steps`` steps with
+``torch.profiler``.  Writes the profiler's table (sorted by device time) to
+``<out-dir>/profile_torch_step_<codename>.txt`` and prints one JSON line:
+wall ms per step, device-busy ms per step (the sum of kernel and copy
+times; one stream, so they do not overlap), the idle share, device
+operations (kernels and copies) and device-to-host copies per step, and
+device ms per step for the port's kernels and for the largest other groups.
 
 Run from the repository root on a machine with the card:
-``python3 scripts/profile_torch_step.py``.
+``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]``.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--codename", default="SAMTRON",
+                    choices=("SAMTRON", "ZAMTRUX"))
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out-dir", default=os.path.join("build", "profile"),
@@ -52,7 +55,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     target = make_target(num_dimensions=D, harder_setting=False, seed=0,
                          device=dev)
-    cfg = flagship_config()
+    cfg = flagship_config(codename=args.codename)
     cfg["target_fn"] = target
     _, model, meta = init_experiment(cfg, device=dev)
     gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
@@ -71,7 +74,8 @@ def main() -> int:
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=60)
     os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "profile_torch_step.txt"),
+    with open(os.path.join(args.out_dir,
+                           f"profile_torch_step_{args.codename}.txt"),
               "w") as fh:
         fh.write(table)
 
@@ -82,7 +86,9 @@ def main() -> int:
         return 0.0
 
     groups = {"density_kernel": "B1/B2 density_kernel",
-              "tr_kl_kernel": "B3 tr_kl_kernel"}
+              "tr_kl_kernel": "B3 tr_kl_kernel",
+              "background_kernel": "B4 background_kernel",
+              "more_gram_kernel": "B8 more_gram_kernel"}
     per_group: dict = {}
     busy_us = 0.0
     device_ops = copies_to_host = 0
@@ -102,6 +108,7 @@ def main() -> int:
     top = sorted(per_group.items(), key=lambda kv: -kv[1])[:12]
     out = {
         "device": torch.cuda.get_device_name(0),
+        "codename": args.codename,
         "steps": steps,
         "wall_ms_per_step": wall_s / steps * 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

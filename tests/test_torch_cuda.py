@@ -89,24 +89,80 @@ def test_tr_kl_kernel_matches_plain(dev, k, d):
     torch.testing.assert_close(got[~big], want[~big], atol=1e-4, rtol=1e-4)
 
 
-def test_main_path_on_card_matches_cpu(dev):
-    """Five SAMTRON steps on the card and on the CPU from the same initial
-    state with the same injected draws (one step is an add): counts exact,
-    means and weights within rtol 1e-3 / atol 1e-3 (the card sums in
-    another order), and every kernel launched."""
-    from gmmvi_tpu_torch import StepDraws, state_to_numpy
-    from gmmvi_tpu_torch.configs import (get_default_algorithm_config,
-                                         update_config)
-    from gmmvi_tpu_torch.experiments.setup import init_experiment
-    from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
-        make_target
+@pytest.mark.parametrize("u,d,n,n_masked", [
+    (192, 20, 28800, 64), (7, 5, 600, 2), (70, 60, 520, 23),
+    (5, 128, 77, 0), (1, 1, 33, 0), (4, 3, 10, 4), (300, 6, 1000, 150),
+    (2048, 20, 3000, 700)])
+def test_background_kernel_matches_plain(dev, u, d, n, n_masked):
+    """B4 against its plain version: rtol 1e-4 / atol 2e-4 (the Pallas
+    kernel's bar); -inf in the same places (every row masked).  U = 2048,
+    the cap on max_background_dists, takes over 48 KB of shared memory."""
+    from gmmvi_tpu_torch.ops import background as bops
     from gmmvi_tpu_torch.ops import cuda
-    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
-    over = {
+    args = [t.to(dev) for t in _mixture(u, d, n, 0, seed=u + d)]
+    g = torch.Generator().manual_seed(d)
+    masked = torch.randperm(u, generator=g)[:n_masked].to(dev)
+    args[2][masked] = -torch.inf
+    before = cuda.LAUNCHES["background_logpdf"]
+    got = bops.background_logpdf(*args)
+    want = bops.background_logpdf_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["background_logpdf"] == before + 1
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.isneginf(want).all() == (n_masked == u)
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("k,d,n", [(3, 2, 1000), (5, 7, 613),
+                                   (48, 20, 28801), (2, 45, 517)])
+def test_more_grams_kernel_matches_plain(dev, k, d, n):
+    """B8 against its plain version on samples drawn from the components in
+    runs of 50 with self-normalized importance weights, as the estimator
+    gives them (so whole 32-sample chunks carry no weight for a component
+    and are skipped); N not a multiple of the chunk, a zero-weight tail and
+    one component with no weight at all.  Gram and rhs within 2e-5 of each
+    component's largest entry (fp32 sums over N in another order).  The
+    solved terms are held at rtol 2e-3 in chip_smoke.py; on the random
+    inputs here they also measure the conditioning of the fit, not the
+    kernel."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import density as dops
+    from gmmvi_tpu_torch.ops import more as mops
+
+    means, inv, logw, logdets, _ = _mixture(k, d, n, 0, seed=k * d)
+    chols = torch.linalg.inv(inv)
+    g = torch.Generator().manual_seed(n)
+    comp = (torch.arange(n) // 50) % k
+    x = means[comp] + torch.einsum("nij,nj->ni", chols[comp],
+                                   torch.randn(n, d, generator=g))
+    y = torch.randn(n, generator=g) * 10.0
+    dens, model = dops.densities_plain(means, inv, logw, logdets, x)
+    w = torch.softmax(dens - model[None, :], dim=1)
+    w[:, n - 70:] = 0.0
+    weighted = k - 1 if k > 2 else k
+    w[weighted:] = 0.0
+    args = [t.to(dev).contiguous() for t in (inv, means, w, y, x)]
+    before = cuda.LAUNCHES["more_grams"]
+    gram, rhs = mops.more_grams(*args)
+    gram_p, rhs_p = mops.more_grams_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["more_grams"] == before + 1
+    for got, want in ((gram, gram_p), (rhs, rhs_p)):
+        scale = want.abs().reshape(k, -1).amax(1).clamp(min=1e-30)
+        err = (got - want).abs().reshape(k, -1).amax(1)
+        assert (err <= 2e-5 * scale).all(), (err / scale).tolist()
+    assert torch.equal(gram[weighted:], torch.zeros_like(gram[weighted:]))
+
+
+def _main_path_overrides(codename):
+    return {
         "seed": 0, "temperature": 1.0,
-        "sample_selector_config": {"desired_samples_per_component": 40,
-                                   "ratio_reused_samples_to_desired": 0.0},
+        "sample_selector_config": {
+            "desired_samples_per_component": 40,
+            "ratio_reused_samples_to_desired":
+                2.0 if codename == "ZAMTRUX" else 0.0},
         "model_initialization": {
             "use_diagonal_covs": False, "num_initial_components": 6,
             "prior_mean": 0.0, "prior_scale": 20.0, "initial_cov": 100.0},
@@ -116,29 +172,76 @@ def test_main_path_on_card_matches_cpu(dev):
             "num_database_samples": 1024, "num_prior_samples": 0},
         "tpu": {"max_components": 8},
     }
-    runs = []
+
+
+def _draws(dims, steps):
+    """Injected draws for ``steps`` steps of the overrides above (8 slots,
+    40 samples each, a 1024-row reservoir)."""
     rng = np.random.RandomState(0)
     b, c = 8 * 40, 1024
-    draws = [dict(eps=rng.standard_normal((8, 40, 10)).astype(np.float32),
-                  rand_slots=rng.randint(0, c, b).astype(np.int32),
-                  accept_u=rng.uniform(size=b).astype(np.float32),
-                  db_perm=rng.permutation(c), add_a=np.float32(0.3))
-             for _ in range(5)]
+    return [dict(eps=rng.standard_normal((8, 40, dims)).astype(np.float32),
+                 rand_slots=rng.randint(0, c, b).astype(np.int32),
+                 accept_u=rng.uniform(size=b).astype(np.float32),
+                 db_perm=rng.permutation(c), add_a=np.float32(0.3))
+            for _ in range(steps)]
+
+
+def _build(codename, dims, device):
+    from gmmvi_tpu_torch.configs import (get_default_algorithm_config,
+                                         update_config)
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
+        make_target
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    target = make_target(dims, False, seed=0, device=device)
+    cfg = update_config(get_default_algorithm_config(codename),
+                        _main_path_overrides(codename))
+    cfg["target_fn"] = target
+    _, model, meta = init_experiment(cfg, device=device)
+    return GMMVI.build_from_config(cfg, target, model, meta, device=device)
+
+
+def _step(g, dr, device):
+    from gmmvi_tpu_torch import StepDraws
+
+    g.train_iter(StepDraws(**{k: torch.as_tensor(v).to(device)
+                              for k, v in dr.items()}))
+
+
+@pytest.mark.parametrize("codename,dims", [("SAMTRON", 10), ("ZAMTRUX", 3)])
+def test_main_path_on_card_matches_cpu(dev, codename, dims):
+    """Five steps on the card and on the CPU from the same initial state
+    with the same injected draws (one step is an add), SAMTRON and ZAMTRUX
+    (sample reuse, MORE): counts exact, means and weights within rtol 1e-3
+    / atol 1e-3 (the card sums in another order), and every kernel of the
+    path launched.  ZAMTRUX runs at D = 3: MORE fits F = 1 + D + D(D+1)/2
+    features per component from about 40 draws, which is well posed at D = 3
+    (F = 10) but not at D = 10 (F = 66), where the ridge-1e-12 fit turns the
+    card's rounding into differences far past any fixed bar (one step at
+    D = 10 is taken apart in the next test)."""
+    from gmmvi_tpu_torch import state_to_numpy
+    from gmmvi_tpu_torch.ops import cuda
+
+    runs = []
+    draws = _draws(dims, 5)
     for device in ("cpu", dev):
-        target = make_target(10, False, seed=0, device=device)
-        cfg = update_config(get_default_algorithm_config("SAMTRON"), over)
-        cfg["target_fn"] = target
-        _, model, meta = init_experiment(cfg, device=device)
-        g = GMMVI.build_from_config(cfg, target, model, meta, device=device)
+        g = _build(codename, dims, device)
         cuda.reset_launch_counts()
         for dr in draws:
-            g.train_iter(StepDraws(**{k: torch.as_tensor(v).to(device)
-                                      for k, v in dr.items()}))
+            _step(g, dr, device)
         runs.append(state_to_numpy(g.state))
         launches = dict(cuda.LAUNCHES)
     cpu, card = runs
-    assert launches["density_pack"] == 5 and launches["densities"] == 5
+    assert launches["density_pack"] == 5
     assert launches["tr_kl"] >= 5
+    if codename == "ZAMTRUX":
+        assert launches["densities"] == 10          # ESS pass + weights
+        assert launches["background_logpdf"] == 10  # propose + finalize
+        assert launches["more_grams"] == 5
+        assert int(card["db.num_samples_written"]) < 5 * 6 * 40
+    else:
+        assert launches["densities"] == 5
     for name in ("model.num_active", "db.num_samples_written", "db.write_pos",
                  "db.sample_comp", "db.sample_iter", "db.res_count"):
         np.testing.assert_array_equal(card[name], cpu[name], err_msg=name)
@@ -146,3 +249,154 @@ def test_main_path_on_card_matches_cpu(dev):
     for name in ("model.means", "model.log_weights"):
         np.testing.assert_allclose(card[name], cpu[name], rtol=1e-3,
                                    atol=1e-3, err_msg=name)
+
+
+def _rel_to_scale(got, want):
+    """Per component: max |got - want| over the component's largest |want|;
+    the largest of these over the components with a nonzero want."""
+    k = want.shape[0]
+    scale = want.abs().reshape(k, -1).amax(1)
+    err = (got - want).abs().reshape(k, -1).amax(1)
+    live = scale > 0
+    return float((err[live] / scale[live]).max())
+
+
+def test_zamtrux_step_on_card_matches_cpu_up_to_the_solve(dev, monkeypatch):
+    """Where the card and the CPU part at D = 10: one ZAMTRUX step from one
+    state (four CPU steps in, so old distributions are reused) with the same
+    draws, each stage held card against CPU.  The proposal's fresh-sample
+    counts (ESS floors, B2 and B4) and the window's integer leaves exactly;
+    its background densities at B4's bar (atol 2e-4 + rtol 1e-4); the card's
+    Gram against the plain version on the card's own inputs at B8's bar (2e-5
+    of each component's largest entry) and against the CPU's Gram within
+    1e-3 (its weights come from log densities held at atol 5e-4).  Past the
+    Gram the two part in the ridge-1e-12 solve: the regularized Grams are
+    singular to f32 precision (condition numbers up to ~1e10 on the CPU), so
+    even their float64 solutions differ by O(1); each component's difference
+    is held to the first-order perturbation bound kappa (eA + eb) /
+    (1 - kappa eA) of the two Grams' difference (no bound where
+    kappa eA >= 1).  The readings are printed as one JSON line."""
+    import json
+
+    from gmmvi_tpu_torch import state_from_numpy, state_to_numpy
+    from gmmvi_tpu_torch.ops import more as mops
+    from gmmvi_tpu_torch.ops import quadratic as qops
+    from gmmvi_tpu_torch.optimization import ng_estimators, sample_selectors
+
+    dims = 10
+    draws = _draws(dims, 5)
+    g_cpu = _build("ZAMTRUX", dims, "cpu")
+    for dr in draws[:4]:
+        _step(g_cpu, dr, "cpu")
+    named = state_to_numpy(g_cpu.state)
+    g_card = _build("ZAMTRUX", dims, dev)
+    g_card.state = state_from_numpy(named, device=dev, like=g_card.state)
+
+    seen = {}
+
+    def recording(module, attr):
+        fn = getattr(module, attr)
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            seen[attr] = (args, out)
+            return out
+
+        monkeypatch.setattr(module, attr, call)
+
+    recording(sample_selectors, "propose")
+    recording(sample_selectors, "finalize_fused")
+    recording(ng_estimators, "more_grams")
+    stages = []
+    for g, device in ((g_cpu, "cpu"), (g_card, dev)):
+        seen.clear()
+        _step(g, draws[4], device)
+        stages.append({k: (v[0], v[1]) for k, v in seen.items()})
+        stages[-1]["state"] = state_to_numpy(g.state)
+    cpu, card = stages
+
+    def host(t):
+        return t.cpu() if torch.is_tensor(t) else t
+
+    p_cpu, p_card = cpu["propose"][1], card["propose"][1]
+    w_cpu, w_card = cpu["finalize_fused"][1][1], card["finalize_fused"][1][1]
+    valid = w_cpu.valid
+    args_card, (gram_card, rhs_card) = card["more_grams"]
+    _, (gram_cpu, rhs_cpu) = cpu["more_grams"]
+    gram_plain, rhs_plain = mops.more_grams_plain(*args_card)
+    # the solve: each side's Gram in f32 and in float64, at the components
+    # and regularizers of the start state (the estimate precedes the update)
+    f64 = torch.float64
+    regs = torch.as_tensor(named["meta.l2_regularizers"])
+    means = torch.as_tensor(named["model.means"])
+    inv_chols = torch.as_tensor(named["model.inv_chols"])
+    active = torch.as_tensor(named["model.log_weights"]) > -np.inf
+    quad = {}
+    for side, gram, rhs in (("cpu", gram_cpu, rhs_cpu),
+                            ("card", host(gram_card), host(rhs_card))):
+        for bits, dtype in ((32, torch.float32), (64, f64)):
+            quad[side, bits] = qops.solve_quadratic_normal_eqs(
+                gram.to(dtype), rhs.to(dtype), regs.to(dtype),
+                means.to(dtype), inv_chols.to(dtype))[0][active].to(f64)
+    # the exact solutions of both sides' regularized normal equations
+    f = gram_cpu.shape[-1]
+    ridge = torch.eye(f, dtype=f64)
+    ridge[f - 1, f - 1] = 0.0
+    a_cpu, a_card = (g.to(f64)[active] + regs.to(f64)[active, None, None]
+                     * ridge for g in (gram_cpu, host(gram_card)))
+    b_cpu, b_card = rhs_cpu.to(f64)[active], host(rhs_card).to(f64)[active]
+    th_cpu = torch.linalg.solve(a_cpu, b_cpu)
+    th_card = torch.linalg.solve(a_card, b_card)
+    kappa = torch.linalg.cond(a_cpu)
+    e_a = torch.linalg.matrix_norm(a_card - a_cpu, ord=2) \
+        / torch.linalg.matrix_norm(a_cpu, ord=2)
+    e_b = (b_card - b_cpu).norm(dim=1) / b_cpu.norm(dim=1)
+    theta_rel = (th_card - th_cpu).norm(dim=1) / th_cpu.norm(dim=1)
+    theta_bound = torch.where(kappa * e_a < 1.0,
+                              kappa * (e_a + e_b) / (1.0 - kappa * e_a),
+                              torch.inf)
+    reading = dict(
+        num_reused=[int(p_cpu.num_reused), int(p_card.num_reused)],
+        background_max_abs=float(
+            (host(w_card.background_log_pdfs)[valid]
+             - w_cpu.background_log_pdfs[valid]).abs().max()),
+        gram_card_vs_plain=_rel_to_scale(gram_card, gram_plain),
+        rhs_card_vs_plain=_rel_to_scale(rhs_card, rhs_plain),
+        gram_card_vs_cpu=_rel_to_scale(host(gram_card), gram_cpu),
+        rhs_card_vs_cpu=_rel_to_scale(host(rhs_card), rhs_cpu),
+        quad64_card_vs_cpu=_rel_to_scale(quad["card", 64], quad["cpu", 64]),
+        quad32_card_vs_cpu=_rel_to_scale(quad["card", 32], quad["cpu", 32]),
+        quad32_vs_quad64_cpu=_rel_to_scale(quad["cpu", 32], quad["cpu", 64]),
+        quad32_vs_quad64_card=_rel_to_scale(quad["card", 32],
+                                            quad["card", 64]),
+        kappa=kappa.tolist(), gram_rel_diff=e_a.tolist(),
+        theta64_rel_diff=theta_rel.tolist(),
+        theta64_bound=theta_bound.tolist(),
+        means_after_step_max_abs=float(np.abs(
+            card["state"]["model.means"]
+            - cpu["state"]["model.means"]).max()))
+    print(json.dumps({"zamtrux_d10_one_step": reading}))
+
+    # the proposal: fresh-sample counts from the ESS floors
+    assert int(p_cpu.num_reused) > 0
+    assert int(p_card.num_reused) == int(p_cpu.num_reused)
+    assert torch.equal(host(p_card.valid), p_cpu.valid)
+    assert torch.equal(host(p_card.mapping), p_cpu.mapping)
+    # the window of the update
+    for name in ("valid", "mapping", "sample_iters", "num_valid"):
+        assert torch.equal(host(getattr(w_card, name)),
+                           getattr(w_cpu, name)), name
+    torch.testing.assert_close(host(w_card.samples), w_cpu.samples,
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(host(w_card.background_log_pdfs)[valid],
+                               w_cpu.background_log_pdfs[valid],
+                               rtol=1e-4, atol=2e-4)
+    # the Gram before the solve, and the solve within its perturbation bound
+    for name, bar in (("gram_card_vs_plain", 2e-5), ("rhs_card_vs_plain", 2e-5),
+                      ("gram_card_vs_cpu", 1e-3), ("rhs_card_vs_cpu", 1e-3)):
+        assert reading[name] <= bar, (name, reading)
+    assert bool((theta_rel <= theta_bound * (1.0 + 1e-6)).all()), reading
+    for name in ("model.num_active", "db.num_samples_written", "db.write_pos",
+                 "db.sample_comp", "db.sample_iter"):
+        np.testing.assert_array_equal(card["state"][name],
+                                      cpu["state"][name], err_msg=name)

@@ -116,12 +116,11 @@ def test_validate_config_reports_as_jax_does(case):
 
 
 @pytest.mark.parametrize("override,missing", [
-    ({"ng_estimator_type": "MORE",
-      "ng_estimator_config": {"initial_l2_regularizer": 1e-12}},
-     "ng_estimator_type"),
+    ({"ng_based_updater_type": "iBLR"}, "ng_based_updater_type"),
     ({"sample_selector_type": "mixture-based"}, "sample_selector_type"),
-    ({"sample_selector_config": {"ratio_reused_samples_to_desired": 2.0}},
-     "reuse"),
+    ({"weight_stepsize_adapter_type": "decaying",
+      "weight_stepsize_adapter_config": {"annealing_exponent": 0.5}},
+     "weight_stepsize_adapter_type"),
     ({"tpu": {"trust_region_search": "newton"}}, "trust_region_search"),
     ({"num_component_adapter_config": {"num_prior_samples": 5}},
      "prior samples"),
@@ -141,6 +140,34 @@ def test_paths_not_ported_raise(override, missing):
     _, model, meta = init_experiment(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=missing):
         GMMVI.build_from_config(cfg, target, model, meta, device="cpu")
+
+
+@pytest.mark.parametrize("kernel", ["background", "more"])
+def test_kernel_wrappers_raise_outside_their_envelope(kernel):
+    """B4 takes D <= 128 (above it waits for B5), B8 D <= 45 (the JAX
+    kernel's envelope)."""
+    from gmmvi_tpu_torch.ops import background, more
+
+    if kernel == "background":
+        d = 129
+        args = [torch.zeros(2, d), torch.eye(d).expand(2, d, d).contiguous(),
+                torch.zeros(2), torch.zeros(2), torch.zeros(3, d)]
+        with pytest.raises(NotImplementedError, match="B5"):
+            background.background_logpdf(*args)
+        args[0], args[1], args[4] = (torch.zeros(2, 128),
+                                     torch.eye(128).expand(2, 128, 128)
+                                     .contiguous(), torch.zeros(3, 128))
+        assert background.background_logpdf(*args).shape == (3,)
+    else:
+        d = 46
+        args = [torch.eye(d).expand(2, d, d).contiguous(), torch.zeros(2, d),
+                torch.zeros(2, 3), torch.zeros(3), torch.zeros(3, d)]
+        with pytest.raises(NotImplementedError, match="D <= 45"):
+            more.more_grams(*args)
+        args[0], args[1], args[4] = (torch.eye(45).expand(2, 45, 45)
+                                     .contiguous(), torch.zeros(2, 45),
+                                     torch.zeros(3, 45))
+        assert more.more_grams(*args)[0].shape == (2, 1081, 1081)
 
 
 def test_generator_draws_are_reproducible():

@@ -219,9 +219,12 @@ def test_propose_with_injected_eps():
     _close(tp.samples, jp.samples, rtol=1e-6, atol=1e-5)
     np.testing.assert_array_equal(tp.valid.numpy(), np.asarray(jp.valid))
     np.testing.assert_array_equal(tp.mapping.numpy(), np.asarray(jp.mapping))
-    with pytest.raises(NotImplementedError, match="reuse"):
-        tsel.propose(ts, td, tsel.SelectorConfig(**{
-            **cfg, "reused_samples_per_component": 2}), _t(eps))
+    # with reuse on an empty database: no effective samples, all draws valid
+    reuse = {**cfg, "reused_samples_per_component": 2}
+    jp = jsel.propose(js, jd, jsel.SelectorConfig(**reuse), key)
+    tp = tsel.propose(ts, td, tsel.SelectorConfig(**reuse), _t(eps))
+    np.testing.assert_array_equal(tp.valid.numpy(), np.asarray(jp.valid))
+    assert int(tp.num_reused) == int(jp.num_reused) == 0
 
 
 # ---------------------------------------------------------------------------

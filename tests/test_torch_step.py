@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from torch_parity import (assert_states_match, build_pair, jax_state_leaves,
-                          jax_step_draws)
+                          jax_step_draws, mc_elbo)
 
 import gmmvi_tpu_torch
 
@@ -44,20 +44,6 @@ def test_one_step_matches_jax_leaf_by_leaf(interpret_kernels, start):
     assert set(t_named) == set(j_named) - {"key"}
     assert int(t_named["db.num_samples_written"]) > 0
     assert_states_match(t_named, j_named, rtol=1e-4, atol=1e-5)
-
-
-def _elbo(model_logpdf, target_logpdf, means, chols, log_weights,
-          num_active, rng_state=99, n=2000):
-    """ELBO estimate from n mixture draws made with numpy (component by
-    inverse CDF of shared uniforms, then mu + L eps)."""
-    rng = np.random.RandomState(rng_state)
-    k = num_active
-    w = np.exp(log_weights[:k].astype(np.float64))
-    comp = np.minimum(np.searchsorted(np.cumsum(w / w.sum()),
-                                      rng.uniform(size=n)), k - 1)
-    eps = rng.standard_normal((n, means.shape[1])).astype(np.float32)
-    x = means[comp] + np.einsum("nij,nj->ni", chols[comp], eps)
-    return float(np.mean(target_logpdf(x) - model_logpdf(x)))
 
 
 def test_trajectory_matches_jax(interpret_kernels):
@@ -98,7 +84,7 @@ def test_trajectory_matches_jax(interpret_kernels):
     elbos = []
     for named, m, tgt in ((j_named, j_model, j_target),
                           (t_named, t_model, t_target)):
-        elbos.append(_elbo(m, tgt, named["model.means"],
+        elbos.append(mc_elbo(m, tgt, named["model.means"],
                            named["model.chols"], named["model.log_weights"],
                            int(named["model.num_active"])))
     assert abs(elbos[0] - elbos[1]) < 1.0, elbos

@@ -39,9 +39,19 @@ def samtron_overrides(n_des=N_DES, kmax=KMAX, k0=K0, del_iters=100,
     }
 
 
-def build_pair(dims=DIMS, **kw):
+def zamtrux_overrides(ratio=2.0, **kw):
+    """ZAMTRUX (VIPS: MORE, direct weight update, fixed weight stepsize)
+    with the small-run overrides of :func:`samtron_overrides`, but with the
+    M letter's sample reuse (``ratio_reused_samples_to_desired`` 2.0)."""
+    over = samtron_overrides(**kw)
+    over["sample_selector_config"]["ratio_reused_samples_to_desired"] = ratio
+    return over
+
+
+def build_pair(dims=DIMS, codename="SAMTRON", **kw):
     """(jax_gmmvi, torch_gmmvi) on the same Student-T target and the same
-    initial mixture, both on the CPU."""
+    initial mixture, both on the CPU; ``codename`` SAMTRON or ZAMTRUX with
+    its overrides above."""
     import gmmvi_tpu.configs as jcfg
     from gmmvi_tpu.experiments.setup import init_experiment as j_init
     from gmmvi_tpu.experiments.targets.student_t_mixture import \
@@ -54,16 +64,17 @@ def build_pair(dims=DIMS, **kw):
         make_target as t_target
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI as TGMMVI
 
-    over = samtron_overrides(**kw)
+    over = (zamtrux_overrides if codename == "ZAMTRUX"
+            else samtron_overrides)(**kw)
     jt = j_target(dims, False, seed=0)
-    jc = jcfg.update_config(jcfg.get_default_algorithm_config("SAMTRON"),
+    jc = jcfg.update_config(jcfg.get_default_algorithm_config(codename),
                             over)
     jc["target_fn"] = jt
     _, jm, jmeta = j_init(jc)
     jg = JGMMVI.build_from_config(jc, jt, jm, jmeta)
 
     tt = t_target(dims, False, seed=0, device="cpu")
-    tc = tcfg.update_config(tcfg.get_default_algorithm_config("SAMTRON"),
+    tc = tcfg.update_config(tcfg.get_default_algorithm_config(codename),
                             over)
     tc["target_fn"] = tt
     _, tm, tmeta = t_init(tc, device="cpu")
@@ -120,3 +131,17 @@ def assert_states_match(t_named: dict, j_named: dict, rtol=1e-4,
         else:
             np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
                                        err_msg=name)
+
+
+def mc_elbo(model_logpdf, target_logpdf, means, chols, log_weights,
+            num_active, rng_state=99, n=2000):
+    """ELBO estimate from n mixture draws made with numpy (component by
+    inverse CDF of shared uniforms, then mu + L eps)."""
+    rng = np.random.RandomState(rng_state)
+    k = num_active
+    w = np.exp(log_weights[:k].astype(np.float64))
+    comp = np.minimum(np.searchsorted(np.cumsum(w / w.sum()),
+                                      rng.uniform(size=n)), k - 1)
+    eps = rng.standard_normal((n, means.shape[1])).astype(np.float32)
+    x = means[comp] + np.einsum("nij,nj->ni", chols[comp], eps)
+    return float(np.mean(target_logpdf(x) - model_logpdf(x)))
