@@ -5,9 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases, each
 printing one JSON line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: every CUDA kernel of the main path, compiled from
+2. build: every CUDA kernel of the main paths, compiled from
    ``gmmvi_tpu_torch/csrc`` with ``nvcc`` (in parallel), with the seconds;
-3. kernels: each kernel at the main path's shapes against its plain
+3. kernels: each kernel at its main path's shapes against its plain
    PyTorch version on the card (max error against the stated tolerance),
    timed with CUDA events: ``ms`` and ``plain_ms`` are device time per call
    (median of 21 batches of 20 back-to-back calls queued behind a spin
@@ -20,17 +20,22 @@ printing one JSON line:
    Student-T mixture (45 components padded to 48, 200 samples per
    component, full covariances, no sample reuse; kernels B1-B3), then
    ZAMTRUX (VIPS: MORE, sample reuse at 2.0 x 200 per component, direct
-   weight update; kernels B1-B4 and B8) at the same widths;
+   weight update; kernels B1-B4 and B8) at the same widths, then SAMTRON on
+   the 300-D Student-T mixture, ``get_default_config("SAMTRON",
+   "stm300")`` (20 components padded to 40, 100 fresh and 200 reused
+   samples per component; kernels B5-B7 and the whitened trust-region
+   update; 61 iterations instead of 130 if its step exceeds 150 ms; held to
+   an improving ELBO, estimated as the JAX package's runner does);
 5. every kernel once more, on the inputs of its last launch in the
    ZAMTRUX run (B2 at both of its window sizes; the data decides how much
-   work B4 and B8 do), against its plain version at the bar of phase 3,
-   timed as there.
+   work B4 and B8 do) and in the stm300 run (B5 at each of its four call
+   sizes), against its plain version at the bar of phase 3, timed as there.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
-path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8), the card's
-name and power limit as ``nvidia-smi`` gives them, and last
-``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
-non-zero before that line.  Without a CUDA card it exits 1.
+path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
+B5-B7), the card's name and power limit as ``nvidia-smi`` gives them, and
+last ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure
+exits non-zero before that line.  Without a CUDA card it exits 1.
 """
 from __future__ import annotations
 
@@ -50,6 +55,13 @@ D, KMAX, K0, N_DES = 20, 48, 45, 200
 REUSED = 2 * N_DES                       # ratio_reused_samples_to_desired 2.0
 N_WINDOW = KMAX * (REUSED + N_DES)       # 28,800: the total window
 U_BACKGROUND = min(4 * KMAX, 2048)       # 192: max_background_dists
+# stm300 (SAMTRON's defaults): Kmax 40 = max(2 x 20, 20 + 16) rounded to 8,
+# 100 fresh and 200 reused samples per component
+D_LARGE, KMAX_LARGE, N_DES_LARGE = 300, 40, 100
+N_REUSE_LARGE = KMAX_LARGE * 2 * N_DES_LARGE            # 8,000
+N_LARGE = N_REUSE_LARGE + KMAX_LARGE * N_DES_LARGE      # 12,000
+U_LARGE = min(4 * KMAX_LARGE, 2048)                     # 160
+LARGE_STEP_MS_CAP, LARGE_ITERS_CUT = 150.0, 61
 
 
 def emit(obj) -> None:
@@ -496,7 +508,189 @@ def kernel_phase(dev):
         raise AssertionError(f"tr_kl disagrees with its plain version: "
                              f"{row['max_abs_err']}")
     rows.append(row)
-    return rows + reuse_kernel_rows(dev)
+    return rows + reuse_kernel_rows(dev) + large_kernel_rows(dev)
+
+
+def large_inputs(dev):
+    """stm300-shaped inputs of B5 and B6: K = 40 components, all active,
+    D = 300, N = 12,000 samples (300 drawn from each), the means close
+    enough for every responsibility to be nonzero (B6's full K N D^2
+    work).  Made on the card from a seed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    k, d, n = KMAX_LARGE, D_LARGE, N_LARGE
+    opts = dict(generator=g, device=dev)
+    means = torch.randn(k, d, **opts) * 0.3
+    a = torch.randn(k, d, d, **opts)
+    chols = torch.linalg.cholesky(a @ a.mT / d + torch.eye(d, device=dev))
+    inv_chols = torch.linalg.solve_triangular(
+        chols, torch.eye(d, device=dev).expand(k, d, d), upper=False)
+    logw = torch.full((k,), -math.log(k), device=dev)
+    logdets = torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)).sum(-1)
+    eps = torch.randn(k, n // k, d, **opts)
+    x = (means[:, None, :] + eps @ chols.mT).reshape(n, d)
+    return [t.contiguous() for t in (means, inv_chols, logw, logdets, x)]
+
+
+def stein_inputs(dev, args):
+    """B7's inputs from the same mixture as the estimator makes them:
+    self-normalized importance weights of every component against the
+    mixture (by the plain B5), log-ratio gradients and centred samples."""
+    import torch
+
+    from gmmvi_tpu_torch.ops.density_large import densities_large_plain
+
+    means, _, _, _, x = args
+    comp, model = densities_large_plain(*args)
+    w = torch.softmax(comp - model[None, :], dim=1)
+    g = torch.Generator(device=dev).manual_seed(6)
+    grads = torch.randn(x.shape, generator=g, device=dev) * 10.0
+    return [t.contiguous() for t in (w, grads, x - means.mean(0))]
+
+
+def measure_large_density(name, args) -> dict:
+    """B5 on ``args``, as ``densities_large`` (comp and model) or
+    ``mixture_logpdf_large`` (model alone, -inf rows skipped), against its
+    plain version (rtol 2e-4, atol 2e-3; -inf in the same places), device
+    times and the bound these inputs need: every computed row whitens every
+    sample against its lower triangle."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    fn, plain = getattr(dl, name), getattr(dl, name + "_plain")
+    got, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs, ok = [], True
+    for gv, wv in zip(got, want):
+        fin = torch.isfinite(wv)
+        errs.append(max_err(gv[fin], wv[fin], atol=2e-3, rtol=2e-4))
+        ok = ok and torch.equal(torch.isneginf(gv), torch.isneginf(wv))
+    means, _, logw, _, x = args
+    (k, d), n = means.shape, x.shape[0]
+    comp_out = name == "densities_large"
+    rows = k if comp_out else int((logw > -math.inf).sum())
+    tri = d * (d + 1) / 2
+    nbytes = 4 * (k + rows * (d + tri + 1) + n * d + n
+                  + (k * n if comp_out else 0))
+    b_ms, b_by = bound_ms(2 * rows * n * tri, nbytes)
+    return dict(max_abs_err=max(e[0] for e in errs),
+                ok=ok and all(e[1] for e in errs), rows=k, computed_rows=rows,
+                samples=n, ms=device_ms(lambda: fn(*args)),
+                plain_ms=device_ms(lambda: plain(*args), reps=11, batch=5),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def measure_large_grads(args) -> dict:
+    """B6 on ``args`` (means, inv_chols, logw, comp, model, x) against its
+    plain version (rtol and atol 2e-3); the bound counts D^2 FMAs for each
+    (component, sample) pair whose responsibility is nonzero."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    got = dl.density_grads_large(*args)
+    want = dl.density_grads_large_plain(*args)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want, atol=2e-3, rtol=2e-3)
+    means, _, logw, comp, model, x = args
+    (k, d), n = means.shape, x.shape[0]
+    resp = torch.exp(comp + logw[:, None] - model[None, :])
+    pairs = float(((resp > 0) & (logw > -math.inf)[:, None]
+                   & (model > -math.inf)[None, :]).sum())
+    b_ms, b_by = bound_ms(2 * pairs * d * d,
+                          4 * (k * (d + d * (d + 1) / 2 + 1) + k * n + n
+                               + 2 * n * d))
+    return dict(max_abs_err=err, ok=ok, components=k, samples=n,
+                responsible_pairs=pairs,
+                ms=device_ms(lambda: dl.density_grads_large(*args)),
+                plain_ms=device_ms(lambda: dl.density_grads_large_plain(*args),
+                                   reps=11, batch=5),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def measure_stein(args) -> dict:
+    """B7 on ``args`` (w, g, xc) against its plain version: within 1e-5 of
+    each component's largest |entry| of the plain result (the scale divided
+    by; components without weight must give zeros); the bound counts D^2
+    FMAs per nonzero weight.  ``library_ms``: one ``torch.einsum("kn,nd,ne->
+    kde")`` on the same inputs (the plain version sums the same products
+    over chunks of N instead, to bound its memory)."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import stein
+
+    got = stein.stein_smom(*args)
+    want = stein.stein_smom_plain(*args)
+    torch.cuda.synchronize()
+    w, g, _ = args
+    (k, n), d = w.shape, g.shape[1]
+    scale = want.abs().reshape(k, -1).amax(1)
+    err = (got - want).abs().reshape(k, -1).amax(1)
+    live = scale > 0
+    rel = float((err[live] / scale[live]).max()) if bool(live.any()) else 0.0
+    ok = rel <= 1e-5 and bool((err[~live] == 0).all())
+    pairs = float((w != 0).sum())
+    b_ms, b_by = bound_ms(2 * pairs * d * d,
+                          4 * (k * n + 2 * n * d + k * d * d))
+    return dict(max_abs_err=float(err.max()), rel_to_scale=rel, ok=ok,
+                components=k, samples=n, weighted_pairs=pairs,
+                ms=device_ms(lambda: stein.stein_smom(*args)),
+                plain_ms=device_ms(lambda: stein.stein_smom_plain(*args),
+                                   reps=11, batch=5),
+                library_ms=device_ms(
+                    lambda: torch.einsum("kn,nd,ne->kde", *args),
+                    reps=11, batch=5),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def large_kernel_rows(dev):
+    """B5, B6 and B7 at the stm300 shapes on synthetic inputs."""
+    from gmmvi_tpu_torch.ops import density_large as dl
+    from gmmvi_tpu_torch.ops import stein
+
+    args = large_inputs(dev)
+    b5 = dict(
+        name="densities_large", route="cuda",
+        source="gmmvi_tpu_torch/csrc/density_large.cu",
+        replaces="gmmvi_tpu/ops/pallas_density_large.py:101",
+        tolerance="rtol 2e-4 + atol 2e-3 (comp and model)",
+        **measure_large_density("densities_large", args),
+        call_ms=call_ms(lambda: dl.densities_large(*args)), library_ms=None,
+        library="none: no single PyTorch call computes component densities "
+                "with their mixture logsumexp")
+    emit({"phase": "kernel", **b5})
+    comp, model = dl.densities_large_plain(*args)
+    gargs = [*args[:3], comp, model, args[4]]
+    b6 = dict(
+        name="density_grads_large", route="cuda",
+        source="gmmvi_tpu_torch/csrc/density_large.cu",
+        replaces="gmmvi_tpu/ops/pallas_density_large.py:164",
+        tolerance="rtol 2e-3 + atol 2e-3",
+        **measure_large_grads(gargs),
+        call_ms=call_ms(lambda: dl.density_grads_large(*gargs)),
+        library_ms=None,
+        library="none: no single PyTorch call computes a mixture's "
+                "log-density gradient from its factors")
+    emit({"phase": "kernel", **b6})
+    sargs = stein_inputs(dev, args)
+    b7 = dict(
+        name="stein_smom", route="cuda",
+        source="gmmvi_tpu_torch/csrc/stein.cu",
+        replaces="gmmvi_tpu/ops/pallas_stein.py:75",
+        tolerance="1e-5 of each component's largest |entry|",
+        **measure_stein(sargs),
+        call_ms=call_ms(lambda: stein.stein_smom(*sargs)),
+        library='torch.einsum("kn,nd,ne->kde", w, g, xc)')
+    emit({"phase": "kernel", **b7})
+    for row in (b5, b6, b7):
+        if not row["ok"]:
+            raise AssertionError(f"{row['name']} disagrees with its plain "
+                                 f"version: {row['max_abs_err']}")
+    return [b5, b6, b7]
 
 
 def flagship_config(seed: int = 0, codename: str = "SAMTRON") -> dict:
@@ -542,33 +736,75 @@ def newest_window_mean_lnpdf(db) -> float:
     return float(db.target_lnpdfs[sel].mean())
 
 
+def mc_elbo(model, target, n: int = 2000, seed: int = 0):
+    """(ELBO, mean target log-density) as the JAX package's runner
+    estimates them (``GmmviRunner.get_expensive_metrics``, temperature 1):
+    means of log p(x) - log q(x) and of log p(x) over ``n`` draws from the
+    mixture, made on the card from ``seed``.  Their difference is the
+    entropy estimate."""
+    import torch
+
+    from gmmvi_tpu_torch.models import gmm
+
+    dev = model.means.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    comp = torch.multinomial(torch.where(model.mask, model.weights, 0.0), n,
+                             replacement=True, generator=g)
+    eps = torch.randn((n, model.num_dimensions), generator=g, device=dev)
+    x = model.means[comp] + torch.einsum("nij,nj->ni", model.chols[comp], eps)
+    lnp = target.log_density(x)
+    return (float((lnp - gmm.log_density(model, x)).mean()),
+            float(lnp.mean()))
+
+
+def recording(captured: dict, module, attr, key=None):
+    """Replace ``module.attr`` by a wrapper that keeps its latest arguments
+    in ``captured`` (under ``key(args)``, else ``attr``) and calls it as
+    before, so its launches count once; returns the undo.  The port's
+    updates make new tensors, so the kept arguments stay as the kernel saw
+    them."""
+    fn = getattr(module, attr)
+
+    def call(*args):
+        captured[attr if key is None else key(args)] = args
+        return fn(*args)
+
+    setattr(module, attr, call)
+    return lambda: setattr(module, attr, fn)
+
+
 def capture_last_inputs(captured: dict):
-    """Keep the arguments of the latest call the main path makes to each
+    """Keep the arguments of the latest call the ZAMTRUX path makes to each
     kernel wrapper, B2's by its number of samples (its two call sites, the
     ESS pass over the reuse window and the weight update over the total
-    window, differ in size).  The wrappers are called as before, so their
-    launches count once; the port's updates make new tensors, so the kept
-    arguments stay as the kernel saw them."""
+    window, differ in size)."""
     from gmmvi_tpu_torch.ops import density
     from gmmvi_tpu_torch.optimization import (component_updaters,
                                               ng_estimators, sample_db)
 
-    def recording(module, attr, key=None):
-        fn = getattr(module, attr)
-
-        def call(*args):
-            captured[attr if key is None else key(args)] = args
-            return fn(*args)
-
-        setattr(module, attr, call)
-        return lambda: setattr(module, attr, fn)
-
-    return [recording(density, "density_pack"),
-            recording(density, "densities",
+    return [recording(captured, density, "density_pack"),
+            recording(captured, density, "densities",
                       key=lambda args: ("densities", args[4].shape[0])),
-            recording(component_updaters, "tr_kl"),
-            recording(sample_db, "background_logpdf"),
-            recording(ng_estimators, "more_grams")]
+            recording(captured, component_updaters, "tr_kl"),
+            recording(captured, sample_db, "background_logpdf"),
+            recording(captured, ng_estimators, "more_grams")]
+
+
+def capture_large_d_inputs(captured: dict):
+    """The same for the stm300 path: B5 by entry and size (the pack and the
+    weight update over the total window, the ESS pass over the reuse
+    window, the background over U ring rows at both), B6 and B7."""
+    from gmmvi_tpu_torch.ops import density_large, stein
+
+    def size(args):
+        return args[0].shape[0], args[4].shape[0]
+
+    return [recording(captured, density_large, "densities_large",
+                      key=lambda args: ("densities_large", *size(args))),
+            recording(captured, density_large, "mixture_logpdf_large",
+                      key=lambda args: ("mixture_logpdf_large", *size(args))),
+            recording(captured, density_large, "density_grads_large"),
+            recording(captured, stein, "stein_smom")]
 
 
 def main_path_phase(dev, codename, kernel_names, captured=None):
@@ -688,6 +924,153 @@ def main_path_input_rows(captured) -> None:
                                  f"on the main path's inputs: {out}")
 
 
+LARGE_KERNELS = ("densities_large", "density_grads_large", "stein_smom")
+
+
+def large_d_phase(dev, captured):
+    """SAMTRON on stm300 through the entry points, from
+    ``get_default_config("SAMTRON", "stm300")`` as the JAX package's
+    scripts build it: 130 iterations (61 if the step exceeds 150 ms over
+    iterations 2-11), the launch counters set to 0 just before and read
+    just after; the inputs of the last B5 (per call size), B6 and B7
+    launches go to ``captured``."""
+    import torch
+
+    from gmmvi_tpu_torch.configs import get_default_config
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.optimization import component_updaters
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg = get_default_config("SAMTRON", "stm300")
+    target, model, meta = init_experiment(cfg, device=dev)
+    gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+    sel = gmmvi.selector_cfg
+    shape = (model.num_dimensions, model.max_components,
+             sel.desired_samples_per_component,
+             sel.reused_samples_per_component, sel.max_background_dists)
+    if shape != (D_LARGE, KMAX_LARGE, N_DES_LARGE, 2 * N_DES_LARGE, U_LARGE):
+        raise AssertionError(f"stm300 built as {shape}")
+    # each step's reused-sample count (device tensors, read at the end) and
+    # bisection trips (a host count)
+    reused, trips = [], []
+    propose = gmmvi._propose_phase
+    search = component_updaters._bracketing_search_batched
+
+    def recording_propose(state, draws):
+        prop = propose(state, draws)
+        reused.append(prop.num_reused)
+        return prop
+
+    def counting_search(*args, **kw):
+        out = search(*args, **kw)
+        trips.append(out[2])
+        return out
+
+    gmmvi._propose_phase = recording_propose
+    component_updaters._bracketing_search_batched = counting_search
+    restore = capture_large_d_inputs(captured)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gmmvi.train_iter()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    start_lnpdf = newest_window_mean_lnpdf(gmmvi.state.db)
+    start_elbo, start_density = mc_elbo(gmmvi.state.model, target)
+    iters, done, probe_ms = MAIN_ITERS, 1, None
+    t0 = time.perf_counter()
+    while done < iters:
+        gmmvi.train_iter()
+        done += 1
+        if done == 11:
+            torch.cuda.synchronize()
+            probe_ms = (time.perf_counter() - t0) / 10 * 1e3
+            if probe_ms > LARGE_STEP_MS_CAP:
+                iters = LARGE_ITERS_CUT
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    for undo in restore:
+        undo()
+    component_updaters._bracketing_search_batched = search
+
+    st = gmmvi.state
+    num_active = int(st.model.num_active)
+    end_lnpdf = newest_window_mean_lnpdf(st.db)
+    end_elbo, end_density = mc_elbo(st.model, target)
+    means_finite = bool(torch.isfinite(st.model.means[:num_active]).all())
+    reused = [int(r) for r in reused]
+    fevals = int(st.db.num_samples_written)
+    step_ms = steady_s / (iters - 1) * 1e3
+    out = dict(
+        phase="main_path", codename="SAMTRON", experiment="stm300",
+        iterations=iters, cut_to_61=iters != MAIN_ITERS,
+        probe_step_ms=probe_ms, first_step_s=first_s, step_ms=step_ms,
+        samples_per_s=KMAX_LARGE * N_DES_LARGE / (step_ms / 1e3),
+        fevals=fevals, fevals_per_step=fevals / iters,
+        trips_per_step=sum(trips) / iters, launches=launches,
+        launches_per_step={k: v / iters for k, v in launches.items()},
+        num_active=num_active, num_reused_mean=sum(reused) / len(reused),
+        num_reused=reused, elbo_start=start_elbo, elbo_end=end_elbo,
+        draws_mean_target_lnpdf_start=start_density,
+        draws_mean_target_lnpdf_end=end_density,
+        window_mean_target_lnpdf_start=start_lnpdf,
+        window_mean_target_lnpdf_end=end_lnpdf, means_finite=means_finite,
+        peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    emit(out)
+    if not means_finite:
+        raise AssertionError("non-finite means after the stm300 path")
+    if not 1 <= num_active <= KMAX_LARGE:
+        raise AssertionError(f"num_active {num_active} outside [1, "
+                             f"{KMAX_LARGE}]")
+    # B5: pack, ESS pass, weight update and two background passes a step
+    wanted = {"densities_large": 4 * iters, "density_grads_large": iters,
+              "stein_smom": iters}
+    for name, least in wanted.items():
+        if launches[name] < least:
+            raise AssertionError(f"{name}: {launches[name]} launches < "
+                                 f"{least} on the stm300 path")
+    for name in ("density_pack", "densities", "tr_kl", "background_logpdf",
+                 "more_grams"):
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 "on the stm300 path")
+    # held: the ELBO.  The window means are reported, not held: here the
+    # mixture widens from its start (entropy up by some 800 nats in 130
+    # steps) while its ELBO climbs, so the target density of its newest
+    # samples falls
+    if not end_elbo > start_elbo:
+        raise AssertionError(f"the ELBO did not improve: {start_elbo} -> "
+                             f"{end_elbo}")
+    return launches
+
+
+def large_d_input_rows(captured) -> None:
+    """B5 at each of its call sizes, B6 and B7 once more on the inputs of
+    their last launch in the stm300 run, against their plain versions at
+    the kernel phase's bars; fails on a miss."""
+    keys = sorted(k for k in captured if isinstance(k, tuple))
+    if len(keys) != 4:
+        raise AssertionError(f"expected B5 at four call sizes, got {keys}")
+    measures = [(f"{key[0]}[K={key[1]},N={key[2]}]",
+                 lambda key=key: measure_large_density(key[0], captured[key]))
+                for key in keys]
+    measures += [
+        ("density_grads_large",
+         lambda: measure_large_grads(captured["density_grads_large"])),
+        ("stein_smom", lambda: measure_stein(captured["stein_smom"]))]
+    for name, measure in measures:
+        out = measure()
+        emit({"phase": "kernel_on_main_path_inputs", "path": "stm300",
+              "name": name, **out})
+        if not out["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the stm300 path's inputs: {out}")
+
+
 def main() -> int:
     import torch
 
@@ -711,14 +1094,19 @@ def main() -> int:
     rows = kernel_phase(dev)
     flagship = ("density_pack", "densities", "tr_kl")
     captured: dict = {}
+    captured_large: dict = {}
     by_path = {"SAMTRON": main_path_phase(dev, "SAMTRON", flagship),
-               "ZAMTRUX": main_path_phase(dev, "ZAMTRUX",
-                                          [r["name"] for r in rows],
-                                          captured)}
+               "ZAMTRUX": main_path_phase(
+                   dev, "ZAMTRUX",
+                   flagship + ("background_logpdf", "more_grams"), captured),
+               "stm300": large_d_phase(dev, captured_large)}
     main_path_input_rows(captured)
+    large_d_input_rows(captured_large)
     for r in rows:
-        # the flagship's count for B1-B3, the reuse path's for B4 and B8
-        path = "SAMTRON" if r["name"] in flagship else "ZAMTRUX"
+        # the flagship's count for B1-B3, the reuse path's for B4 and B8,
+        # the stm300 path's for B5-B7
+        path = ("SAMTRON" if r["name"] in flagship else
+                "stm300" if r["name"] in LARGE_KERNELS else "ZAMTRUX")
         r["launches"] = by_path[path][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -2,9 +2,9 @@
 
 (JAX counterpart: gmmvi_tpu/configs/__init__.py)
 
-The module defaults each codename letter selects, and the ``stm20``
-experiment defaults, are kept here as Python dicts: the port reads no YAML
-at run time.  They equal the YAML files of the JAX package
+The module defaults each codename letter selects, and the ``stm20`` and
+``stm300`` experiment defaults, are kept here as Python dicts: the port
+reads no YAML at run time.  They equal the YAML files of the JAX package
 (``gmmvi_tpu/configs/module_configs`` and ``experiment_configs``); a CPU test
 holds them to it.
 """
@@ -87,6 +87,21 @@ EXPERIMENT_DEFAULTS = {
         "gmmvi_runner_config": {"log_metrics_interval": 1000},
         "use_sample_database": True,
         "max_database_size": 10000000,
+        "temperature": 1.0,
+    },
+    "stm300": {
+        "start_seed": 10000,
+        "environment_name": "STM",
+        "environment_config": {"num_dimensions": 300,
+                               "harder_setting": True,
+                               "use_matlab_target": False},
+        "model_initialization": {"use_diagonal_covs": False,
+                                 "num_initial_components": 20,
+                                 "prior_mean": 0.0, "prior_scale": 100.0,
+                                 "initial_cov": 300.0},
+        "gmmvi_runner_config": {"log_metrics_interval": 50},
+        "use_sample_database": True,
+        "max_database_size": 100000,
         "temperature": 1.0,
     },
 }

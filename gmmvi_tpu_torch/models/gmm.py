@@ -20,6 +20,7 @@ import torch
 
 from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.ops import density as density_ops
+from gmmvi_tpu_torch.ops import density_large as density_large_ops
 from gmmvi_tpu_torch.ops.blocked_linalg import tril_inverse
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 
@@ -144,18 +145,29 @@ def _kernel_args(state: GmmState):
     return state.means, state.inv_chols, logw, logdets
 
 
+def _large_d(state: GmmState) -> bool:
+    """D > 128 goes to the K-tiled kernels B5/B6, D <= 128 to B1/B2.  The
+    JAX package also sends small D with Kmax * D > 2048 to its K-tiled
+    kernels (the VMEM-resident ones cap K); the port's B1/B2 stage the
+    factors in chunks and take any K, so they keep that case: a difference
+    of route, not of value."""
+    return state.num_dimensions > density_ops.MAX_D
+
+
 def component_log_densities_fast(state: GmmState, samples: torch.Tensor
                                  ) -> torch.Tensor:
-    """:func:`component_log_densities` in one pass through kernel B2 on the
-    card (the sample selector's ESS pass)."""
+    """:func:`component_log_densities` in one pass through kernel B2 (B5 at
+    D > 128) on the card (the sample selector's ESS pass)."""
     return log_densities_also_individual(state, samples)[1]
 
 
 def log_densities_also_individual(state: GmmState, samples: torch.Tensor):
     """(model log densities ``[N]``, component log densities ``[Kmax, N]``)
-    in one pass: kernel B2 on the card."""
+    in one pass: kernel B2 (B5 at D > 128) on the card."""
     _full_cov_only(state.diagonal)
-    comp, model = density_ops.densities(*_kernel_args(state), samples)
+    fn = (density_large_ops.densities_large if _large_d(state)
+          else density_ops.densities)
+    comp, model = fn(*_kernel_args(state), samples)
     return model, comp
 
 
@@ -173,10 +185,11 @@ class DensityPack:
 def density_pack(state: GmmState, samples: torch.Tensor) -> DensityPack:
     """Component densities, mixture density and analytic mixture gradient
     ``-sum_k r_k(x) Sigma_k^{-1}(x - mu_k)`` in one pass: kernel B1 on the
-    card."""
+    card (B5 then B6 at D > 128)."""
     _full_cov_only(state.diagonal)
-    comp, model, grads = density_ops.density_pack(*_kernel_args(state),
-                                                  samples)
+    fn = (density_large_ops.density_pack_large if _large_d(state)
+          else density_ops.density_pack)
+    comp, model, grads = fn(*_kernel_args(state), samples)
     return DensityPack(comp, model, grads)
 
 

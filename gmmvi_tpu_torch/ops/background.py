@@ -15,7 +15,9 @@ samples ``x [N, D]``::
 over the rows with a finite log weight; -inf where there is none, as
 ``masked_logsumexp`` gives.  On a CPU tensor the wrapper runs the plain
 PyTorch version below; on a CUDA tensor it launches the kernel or raises.
-D <= 128; larger D waits for the large-D kernel (B5).
+D <= 128; for 128 < D <= 512 it takes the mixture output of the K-tiled
+kernel B5 with the -inf rows skipped (``ops/density_large.py``), as the
+JAX package does at D = 300.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ import math
 
 import torch
 
-from gmmvi_tpu_torch.ops import cuda
-from gmmvi_tpu_torch.ops.density import check_inputs
+from gmmvi_tpu_torch.ops import cuda, density_large
+from gmmvi_tpu_torch.ops.density import MAX_D, check_inputs
 from gmmvi_tpu_torch.ops.stable import masked_logsumexp
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -45,7 +47,11 @@ def background_logpdf_plain(means, inv_chols, log_weights, log_dets,
 
 def background_logpdf(means, inv_chols, log_weights, log_dets, samples
                       ) -> torch.Tensor:
-    """B4: the background log-density ``[N]``."""
+    """B4 (B5's mixture output at D > 128): the background log-density
+    ``[N]``."""
+    if means.shape[1] > MAX_D:
+        return density_large.mixture_logpdf_large(
+            means, inv_chols, log_weights, log_dets, samples)
     check_inputs(means, inv_chols, log_weights, log_dets, samples,
                  what="the background kernel (B4)")
     if samples.device.type == "cpu":

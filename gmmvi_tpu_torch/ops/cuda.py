@@ -32,7 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches on CUDA tensors since the last reset
 LAUNCHES: Dict[str, int] = {"density_pack": 0, "densities": 0, "tr_kl": 0,
-                             "background_logpdf": 0, "more_grams": 0}
+                             "background_logpdf": 0, "more_grams": 0,
+                             "densities_large": 0, "density_grads_large": 0,
+                             "stein_smom": 0}
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -55,6 +57,17 @@ _SIGNATURES = {
     "more.cu": {
         # inv_chols, means, w, y, x, gram, rhs, K, N, D, stream
         "gmmvi_more_grams": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
+    },
+    "density_large.cu": {
+        # means, inv_chols, logw, logdets, x, comp, model, K, N, D,
+        # skip_masked, stream
+        "gmmvi_densities_large": [_c_ptr] * 7 + [_c_int] * 4 + [_c_ptr],
+        # lam, means, logw, comp, model, x, grads, K, N, D, stream
+        "gmmvi_density_grads_large": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
+    },
+    "stein.cu": {
+        # w, g, xc, out, K, N, D, stream
+        "gmmvi_stein_smom": [_c_ptr] * 4 + [_c_int] * 3 + [_c_ptr],
     },
 }
 

@@ -17,8 +17,9 @@ Both compute, for a padded mixture of K full-covariance Gaussians given by
   ``r_k = exp(comp_k + log_weights_k - model)``.
 
 On a CPU tensor the wrappers run the plain PyTorch version below; on a CUDA
-tensor they launch the kernel or raise.  D <= 128; larger D waits for the
-large-D kernels (B5/B6).
+tensor they launch the kernel or raise.  D <= 128; larger D goes to the
+K-tiled kernels B5/B6 (``ops/density_large.py``), by the dispatch in
+``models/gmm.py``.
 """
 from __future__ import annotations
 
@@ -35,19 +36,18 @@ MAX_D = 128
 
 
 def check_inputs(means, inv_chols, log_weights, log_dets, samples,
-                 what: str = "density kernels"):
-    """Shapes, float32, one device, row-major, and D <= 128; shared with
-    the background kernel (B4)."""
+                 what: str = "the density kernels B1/B2 (the K-tiled B5/B6 "
+                             "take larger D)", max_d: int = MAX_D):
+    """Shapes, float32, one device, row-major, and D <= ``max_d``; shared
+    with the background kernel (B4) and the large-D kernels (B5/B6)."""
     k, d = means.shape
     n = samples.shape[0]
     cuda.check_tensors({
         "means": (means, (k, d)), "inv_chols": (inv_chols, (k, d, d)),
         "log_weights": (log_weights, (k,)), "log_dets": (log_dets, (k,)),
         "samples": (samples, (n, d))}, samples.device)
-    if d > MAX_D:
-        raise NotImplementedError(
-            f"{what}: D <= {MAX_D} only (got {d}); the large-D "
-            "kernels (B5/B6) are not ported yet")
+    if d > max_d:
+        raise NotImplementedError(f"{what}: D <= {max_d} only (got {d})")
 
 
 def _plain(means, inv_chols, log_weights, log_dets, samples, want_grads):

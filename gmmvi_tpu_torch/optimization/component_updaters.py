@@ -5,8 +5,11 @@ full-covariance bracket path ``_trust_region_update_pallas``)
 
 Every component's stepsize eta is found by the reference's log-space
 bisection, run in lockstep over the padded component axis.  Each trip
-evaluates KL(new_k(eta_k) || old_k) for all components in one call of
-:func:`gmmvi_tpu_torch.ops.trust_region.tr_kl` (kernel B3 on the card); the
+evaluates KL(new_k(eta_k) || old_k) for all components in one call: for
+D <= 64 of :func:`gmmvi_tpu_torch.ops.trust_region.tr_kl` (kernel B3 on the
+card), above it of the JAX package's whitened form in plain torch (the JAX
+package keeps that one in XLA: ``_tr_whitened_precompute`` and
+``_tr_kl_whitened_trip``, selected where its kernel's envelope ends).  The
 loop itself runs on the host and reads one "all done" flag per trip, which
 is one device-to-host sync per trip.  The accepted update is rebuilt at the
 found eta from one Cholesky of the flipped precision.  Failures are success
@@ -23,6 +26,7 @@ from gmmvi_tpu_torch.models.gmm import GmmState, replace_components
 from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.ops.blocked_linalg import tril_inverse
 from gmmvi_tpu_torch.ops.stable import F32_MAX
+from gmmvi_tpu_torch.ops.trust_region import MAX_D as TR_KERNEL_MAX_D
 from gmmvi_tpu_torch.ops.trust_region import prepare_tr_kl_inputs, tr_kl
 
 MAX_TRIPS = 1000
@@ -99,6 +103,48 @@ def _tr_final_full(eta, old_lin, old_prec, old_inv_chol, reward_lin,
     return kl, new_mean, chol_safe, inv_safe
 
 
+def _tr_whitened_precompute(means, chols, inv_chols, reward_lin,
+                            reward_quad):
+    """Once per step: the whitened curvature ``M = L^T R L``, ``c = L^{-1}
+    mu_old`` and ``b1 = L^T r_lin`` with ``Sigma_old = L L^T``.  The
+    interpolated precision then factors as ``L^{-T} (I + M/eta) L^{-1}``, so
+    a trip needs the Cholesky of ``S = I + M/eta`` and one triangular
+    inverse, and the KL is the direct one in exact arithmetic (not in
+    float32: near the bound the two forms can pick different etas, so the
+    port takes the JAX package's)."""
+    m_w = chols.mT @ reward_quad @ chols
+    c = torch.einsum("kij,kj->ki", inv_chols, means)
+    b1 = torch.einsum("kji,kj->ki", chols, reward_lin)
+    return m_w, c, b1
+
+
+def _tr_kl_whitened(etas, m_w, c, b1) -> torch.Tensor:
+    """KL [K] at etas [K] in the whitened form::
+
+        KL = 0.5 [logdet S + tr(S^{-1}) - D + ||c - z||^2],
+        S = I + M/eta,  z = S^{-1}(c + b1/eta),
+
+    F32_MAX where S is not positive definite.  S is symmetrized first, as
+    ``jnp.linalg.cholesky`` does; z comes from the explicit inverse factor
+    (the JAX package's choice above D = 64)."""
+    d = c.shape[-1]
+    eye = torch.eye(d, dtype=m_w.dtype, device=m_w.device)
+    s = m_w / etas[:, None, None] + eye
+    lc, info = torch.linalg.cholesky_ex(0.5 * (s + s.mT))
+    bad = info != 0
+    lc = torch.where(bad[:, None, None], eye, lc)
+    logdet_s = 2.0 * torch.sum(torch.log(torch.diagonal(lc, dim1=-2,
+                                                        dim2=-1)), -1)
+    inv_lc = tril_inverse(lc)
+    trace = torch.sum(inv_lc * inv_lc, dim=(-2, -1))
+    rhs = c + b1 / etas[:, None]
+    z = torch.einsum("kji,kj->ki", inv_lc,
+                     torch.einsum("kij,kj->ki", inv_lc, rhs))
+    q = c - z
+    kl = 0.5 * (logdet_s + trace - d + torch.sum(q * q, -1))
+    return torch.where(bad, F32_MAX, kl)
+
+
 def _bracketing_search_batched(kl_eval: Callable, kl_bound, lower0, upper0,
                                active: Optional[torch.Tensor] = None):
     """The reference's log-space bisection for the largest stepsize within
@@ -158,6 +204,15 @@ def trust_region_update(model: GmmState, meta: MetaState,
     reward_lin = torch.einsum("kij,kj->ki", reward_quad, means) - grads_neg
     inp = prepare_tr_kl_inputs(means, chols, inv_chols, reward_lin,
                                reward_quad)
+    if model.num_dimensions <= TR_KERNEL_MAX_D:
+        def kl_eval(etas):
+            return tr_kl(etas, inp)
+    else:
+        m_w, c, b1 = _tr_whitened_precompute(means, chols, inv_chols,
+                                             reward_lin, reward_quad)
+
+        def kl_eval(etas):
+            return _tr_kl_whitened(etas, m_w, c, b1)
 
     last = meta.last_etas
     no_warm = last < 0
@@ -166,8 +221,7 @@ def trust_region_update(model: GmmState, meta: MetaState,
                                                      min=0.0))
     upper0 = torch.where(no_warm, 80.0, log_last + 3.0)
     exp_lower, exp_upper, _ = _bracketing_search_batched(
-        lambda etas: tr_kl(etas, inp), stepsizes, lower0, upper0,
-        active=model.mask)
+        kl_eval, stepsizes, lower0, upper0, active=model.mask)
     eta = torch.clamp(exp_lower, min=temperature)
     success = exp_lower == exp_upper
 

@@ -13,8 +13,11 @@ always taken in moment form from the density pack's mixture gradients:
         = (sum_n w g (x - c)^T) Lam_o - (sum_n w g) (Lam_o (mu_o - c))^T,
 
 centred on the active means' centroid ``c`` against float cancellation, so
-the ``[Kmax, N, D]`` precision-times-difference array is never formed.
-The Stein estimator with standard importance weights is not ported yet.
+the ``[Kmax, N, D]`` precision-times-difference array is never formed.  The
+moments ``sum_n w g (x - c)^T`` come from kernel B7 (``ops/stein.py``) for
+64 < D <= 512 and N >= 512, where the JAX package uses its kernel, and from
+its plain version elsewhere.  The Stein estimator with standard importance
+weights is not ported yet.
 
 MORE fits every component's quadratic surrogate of the log ratios by
 importance-weighted ridge regression: the weighted normal equations of all
@@ -29,6 +32,7 @@ import torch
 
 from gmmvi_tpu_torch.models.gmm import (DensityPack, GmmState, density_pack,
                                         log_densities_also_individual)
+from gmmvi_tpu_torch.ops import stein as stein_ops
 from gmmvi_tpu_torch.ops.more import more_grams
 from gmmvi_tpu_torch.ops.quadratic import solve_quadratic_normal_eqs
 from gmmvi_tpu_torch.ops.stable import masked_logsumexp
@@ -98,10 +102,12 @@ def stein_estimate(
     shift = torch.where(active[:, None], model.means, 0.0).sum(0) \
         / torch.clamp(active.sum(), min=1)
     lam_mu = torch.einsum("kde,ke->kd", lam, model.means - shift[None, :])
-    # s_mom[k] = sum_n w[k, n] g_n (x_n - c)^T, one [K, N] x [N, D*D] product
-    d = model.num_dimensions
-    outer = log_ratio_grads[:, :, None] * (samples - shift[None, :])[:, None]
-    s_mom = (w @ outer.reshape(-1, d * d)).reshape(-1, d, d)
+    # s_mom[k] = sum_n w[k, n] g_n (x_n - c)^T: kernel B7 where the JAX
+    # package streams it through its kernel, the plain product elsewhere
+    smom = stein_ops.stein_smom_plain
+    if stein_ops.supports(model.num_dimensions, samples.shape[0]):
+        smom = stein_ops.stein_smom
+    s_mom = smom(w, log_ratio_grads, samples - shift[None, :])
     hess = s_mom @ lam - grad[:, :, None] * lam_mu[:, None, :]
     hess = 0.5 * (hess + hess.mT)
     return NgEstimate(-hess, -grad)

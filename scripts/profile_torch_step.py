@@ -4,16 +4,20 @@
 Builds a main path as ``chip_smoke.py`` does (``--codename SAMTRON``, the
 flagship: the 20-D Student-T mixture, 45 components padded to 48, 200
 samples per component; or ``ZAMTRUX``, VIPS with sample reuse at the same
-widths), runs warm-up steps, then traces ``--steps`` steps with
-``torch.profiler``.  Writes the profiler's table (sorted by device time) to
-``<out-dir>/profile_torch_step_<codename>.txt`` and prints one JSON line:
+widths; with ``--experiment stm300``, the codename on the 300-D Student-T
+mixture from ``get_default_config(codename, "stm300")``), runs warm-up
+steps, then traces ``--steps`` steps with ``torch.profiler``.  Writes the
+profiler's table (sorted by device time) to
+``<out-dir>/profile_torch_step_<codename>[_stm300].txt`` and prints one
+JSON line:
 wall ms per step, device-busy ms per step (the sum of kernel and copy
 times; one stream, so they do not overlap), the idle share, device
 operations (kernels and copies) and device-to-host copies per step, and
 device ms per step for the port's kernels and for the largest other groups.
 
 Run from the repository root on a machine with the card:
-``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]``.
+``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]
+[--experiment stm300]``.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--codename", default="SAMTRON",
                     choices=("SAMTRON", "ZAMTRUX"))
+    ap.add_argument("--experiment", default="flagship",
+                    choices=("flagship", "stm300"))
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out-dir", default=os.path.join("build", "profile"),
@@ -45,6 +51,7 @@ def main() -> int:
         return 1
 
     from chip_smoke import D, flagship_config
+    from gmmvi_tpu_torch.configs import get_default_config
     from gmmvi_tpu_torch.device import resolve_device
     from gmmvi_tpu_torch.experiments.setup import init_experiment
     from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
@@ -53,11 +60,15 @@ def main() -> int:
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     dev = resolve_device("cuda")
-    target = make_target(num_dimensions=D, harder_setting=False, seed=0,
-                         device=dev)
-    cfg = flagship_config(codename=args.codename)
-    cfg["target_fn"] = target
-    _, model, meta = init_experiment(cfg, device=dev)
+    if args.experiment == "stm300":
+        cfg = get_default_config(args.codename, "stm300")
+        target, model, meta = init_experiment(cfg, device=dev)
+    else:
+        target = make_target(num_dimensions=D, harder_setting=False, seed=0,
+                             device=dev)
+        cfg = flagship_config(codename=args.codename)
+        cfg["target_fn"] = target
+        _, model, meta = init_experiment(cfg, device=dev)
     gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
     gmmvi.train_iters(args.warmup)
     torch.cuda.synchronize()
@@ -74,8 +85,9 @@ def main() -> int:
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=60)
     os.makedirs(args.out_dir, exist_ok=True)
+    suffix = "_stm300" if args.experiment == "stm300" else ""
     with open(os.path.join(args.out_dir,
-                           f"profile_torch_step_{args.codename}.txt"),
+                           f"profile_torch_step_{args.codename}{suffix}.txt"),
               "w") as fh:
         fh.write(table)
 
@@ -88,7 +100,11 @@ def main() -> int:
     groups = {"density_kernel": "B1/B2 density_kernel",
               "tr_kl_kernel": "B3 tr_kl_kernel",
               "background_kernel": "B4 background_kernel",
-              "more_gram_kernel": "B8 more_gram_kernel"}
+              "more_gram_kernel": "B8 more_gram_kernel",
+              "large_comp_kernel": "B5 large_comp_kernel",
+              "large_lse_kernel": "B5 large_lse_kernel",
+              "large_grad_kernel": "B6 large_grad_kernel",
+              "stein_smom_kernel": "B7 stein_smom_kernel"}
     per_group: dict = {}
     busy_us = 0.0
     device_ops = copies_to_host = 0
@@ -105,10 +121,11 @@ def main() -> int:
                      if key in ev.key), ev.key[:60])
         per_group[name] = per_group.get(name, 0.0) + us
     steps = args.steps
-    top = sorted(per_group.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(per_group.items(), key=lambda kv: -kv[1])[:16]
     out = {
         "device": torch.cuda.get_device_name(0),
         "codename": args.codename,
+        "experiment": args.experiment,
         "steps": steps,
         "wall_ms_per_step": wall_s / steps * 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

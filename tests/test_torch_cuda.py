@@ -400,3 +400,152 @@ def test_zamtrux_step_on_card_matches_cpu_up_to_the_solve(dev, monkeypatch):
                  "db.sample_comp", "db.sample_iter"):
         np.testing.assert_array_equal(card["state"][name],
                                       cpu["state"][name], err_msg=name)
+
+
+def _large_mixture(k, d, n, n_masked, seed):
+    """The large-D kernels' inputs as tests/test_pallas_kernels.py makes
+    them: means spread by 3, covariances a a^T + I with a ~ 0.1 N(0, 1),
+    samples around the first mean; the last ``n_masked`` slots masked."""
+    g = torch.Generator().manual_seed(seed)
+    means = torch.randn(k, d, generator=g) * 3
+    a = torch.randn(k, d, d, generator=g) * 0.1
+    chols = torch.linalg.cholesky(a @ a.mT + torch.eye(d))
+    inv = torch.linalg.solve_triangular(chols, torch.eye(d).expand(k, d, d),
+                                        upper=False).contiguous()
+    logw = torch.log_softmax(torch.randn(k, generator=g), 0)
+    logw[k - n_masked:] = -torch.inf
+    logdets = torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)).sum(-1)
+    x = torch.randn(n, d, generator=g) * 2 + means[0]
+    return [means, inv, logw, logdets, x]
+
+
+@pytest.mark.parametrize("k,d,n", [(40, 300, 12000), (150, 33, 600),
+                                   (9, 512, 300), (3, 129, 70)])
+def test_large_density_kernels_match_plain(dev, k, d, n):
+    """B5 against its plain version at the Pallas test's bar (rtol 2e-4 /
+    atol 2e-3), B6 on the plain comp and model at rtol / atol 2e-3, and
+    B5's background mode with half the rows masked (the same mixture
+    output) and with all of them masked (-inf)."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    args = [t.to(dev) for t in _large_mixture(k, d, n, 3 if k > 3 else 0,
+                                              seed=k + d)]
+    before = dict(cuda.LAUNCHES)
+    comp, model = dl.densities_large(*args)
+    comp_p, model_p = dl.densities_large_plain(*args)
+    grads = dl.density_grads_large(*args[:3], comp_p, model_p, args[4])
+    grads_p = dl.density_grads_large_plain(*args[:3], comp_p, model_p,
+                                           args[4])
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["densities_large"] == before["densities_large"] + 1
+    assert cuda.LAUNCHES["density_grads_large"] == \
+        before["density_grads_large"] + 1
+    torch.testing.assert_close(comp, comp_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(model, model_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(grads, grads_p, rtol=2e-3, atol=2e-3)
+
+    half = list(args)
+    half[2] = args[2].clone()
+    half[2][torch.arange(k, device=dev) % 2 == 1] = -torch.inf
+    got = dl.mixture_logpdf_large(*half)
+    want = dl.mixture_logpdf_large_plain(*half)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-3)
+    half[2] = torch.full_like(args[2], -torch.inf)
+    assert torch.isneginf(dl.mixture_logpdf_large(*half)).all()
+
+
+@pytest.mark.parametrize("k,d,n", [(40, 300, 12000), (150, 33, 600),
+                                   (9, 512, 300), (5, 70, 700)])
+def test_stein_smom_kernel_matches_plain(dev, k, d, n):
+    """B7 against its plain version within 1e-5 of each component's largest
+    entry (fp32 sums over N in another order); a component without weight
+    gives zeros, and runs of zero weight are skipped."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import stein
+
+    g = torch.Generator().manual_seed(k * d)
+    w = torch.rand(k, n, generator=g)
+    w[:, (torch.arange(n) // 40) % 3 == 0] = 0.0
+    w[-1] = 0.0
+    w = w / w.sum(1, keepdim=True).clamp(min=1e-30)
+    gr = torch.randn(n, d, generator=g)
+    xc = torch.randn(n, d, generator=g) * 3
+    args = [t.to(dev).contiguous() for t in (w, gr, xc)]
+    before = cuda.LAUNCHES["stein_smom"]
+    got = stein.stein_smom(*args)
+    want = stein.stein_smom_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["stein_smom"] == before + 1
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    scale = want[:-1].abs().reshape(k - 1, -1).amax(1)
+    err = (got[:-1] - want[:-1]).abs().reshape(k - 1, -1).amax(1)
+    assert (err <= 1e-5 * scale).all(), (err / scale).tolist()
+
+
+def test_large_d_density_pack_dispatch_on_card(dev):
+    """A D = 300 density pack on the card launches B5 and B6, not B1/B2."""
+    from gmmvi_tpu_torch.models import gmm as tgmm
+    from gmmvi_tpu_torch.ops import cuda
+
+    means, inv, logw, _, x = _large_mixture(4, 300, 500, 0, seed=1)
+    covs = torch.linalg.inv(inv.mT @ inv)
+    state = tgmm.create_gmm_state(torch.exp(logw), means, covs,
+                                  max_components=6, device=dev)
+    cuda.reset_launch_counts()
+    pack = tgmm.density_pack(state, x.to(dev))
+    tgmm.log_densities_also_individual(state, x.to(dev))
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["densities_large"] == 2
+    assert cuda.LAUNCHES["density_grads_large"] == 1
+    assert cuda.LAUNCHES["density_pack"] == cuda.LAUNCHES["densities"] == 0
+    assert torch.isfinite(pack.model_grads).all()
+
+
+def test_large_d_path_on_card_matches_cpu(dev):
+    """Five SAMTRON steps with sample reuse at D = 136 on the card and on
+    the CPU from the same initial state with the same injected draws (one
+    step is an add): B5, B6 and B7 and the whitened trust-region update on
+    the card, B1-B4 not at all; counts exact, means and weights within
+    rtol 1e-3 / atol 1e-3."""
+    from gmmvi_tpu_torch import state_to_numpy
+    from gmmvi_tpu_torch.configs import (get_default_algorithm_config,
+                                         update_config)
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
+        make_target
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    dims = 136
+    draws = _draws(dims, 5)
+    runs = []
+    for device in ("cpu", dev):
+        target = make_target(dims, False, seed=0, device=device)
+        cfg = update_config(get_default_algorithm_config("SAMTRON"),
+                            _main_path_overrides("SAMTRON"))
+        cfg = update_config(cfg, {"sample_selector_config": {
+            "ratio_reused_samples_to_desired": 2.0}})
+        cfg["target_fn"] = target
+        _, model, meta = init_experiment(cfg, device=device)
+        g = GMMVI.build_from_config(cfg, target, model, meta, device=device)
+        cuda.reset_launch_counts()
+        for dr in draws:
+            _step(g, dr, device)
+        runs.append(state_to_numpy(g.state))
+        launches = dict(cuda.LAUNCHES)
+    cpu, card = runs
+    assert launches["densities_large"] == 5 * 5   # pack, ESS, weights, 2 bg
+    assert launches["density_grads_large"] == 5
+    assert launches["stein_smom"] == 5
+    for name in ("density_pack", "densities", "tr_kl", "background_logpdf",
+                 "more_grams"):
+        assert launches[name] == 0, name
+    for name in ("model.num_active", "db.num_samples_written", "db.write_pos",
+                 "db.sample_comp", "db.sample_iter", "db.res_count"):
+        np.testing.assert_array_equal(card[name], cpu[name], err_msg=name)
+    assert int(card["model.num_active"]) == 7
+    assert int(card["db.num_samples_written"]) < 5 * 6 * 40
+    for name in ("model.means", "model.log_weights"):
+        np.testing.assert_allclose(card[name], cpu[name], rtol=1e-3,
+                                   atol=1e-3, err_msg=name)

@@ -88,7 +88,22 @@ def test_stm20_defaults_equal_the_yaml_file():
         jcfg.get_default_config("SAMTRON", "stm20")
     assert tcfg.ALL_CODENAME_LETTERS == jcfg.ALL_CODENAME_LETTERS
     with pytest.raises(NotImplementedError, match="not ported"):
-        tcfg.get_default_experiment_config("stm300")
+        tcfg.get_default_experiment_config("gmm20")
+
+
+def test_stm300_defaults_equal_the_yaml_file():
+    """The large-D experiment: its defaults equal stm300.yml, and SAMTRON
+    on it is configured as in the JAX package."""
+    yaml = pytest.importorskip("yaml")
+    import gmmvi_tpu.configs as jcfg
+
+    with open(os.path.join(REPO, "gmmvi_tpu", "configs",
+                           "experiment_configs", "stm300.yml")) as fh:
+        assert tcfg.get_default_experiment_config("stm300") == \
+            yaml.safe_load(fh)
+    assert tcfg.get_default_config("SAMTRON", "stm300") == \
+        jcfg.get_default_config("SAMTRON", "stm300")
+    tcfg.validate_config(tcfg.get_default_config("SAMTRON", "stm300"))
 
 
 def _bad_configs():
@@ -144,20 +159,21 @@ def test_paths_not_ported_raise(override, missing):
 
 @pytest.mark.parametrize("kernel", ["background", "more"])
 def test_kernel_wrappers_raise_outside_their_envelope(kernel):
-    """B4 takes D <= 128 (above it waits for B5), B8 D <= 45 (the JAX
-    kernel's envelope)."""
+    """The background takes D <= 512 (B4 up to 128, B5's mixture output
+    above it), B8 D <= 45 (the JAX kernels' envelopes)."""
     from gmmvi_tpu_torch.ops import background, more
 
     if kernel == "background":
-        d = 129
+        d = 513
         args = [torch.zeros(2, d), torch.eye(d).expand(2, d, d).contiguous(),
                 torch.zeros(2), torch.zeros(2), torch.zeros(3, d)]
         with pytest.raises(NotImplementedError, match="B5"):
             background.background_logpdf(*args)
-        args[0], args[1], args[4] = (torch.zeros(2, 128),
-                                     torch.eye(128).expand(2, 128, 128)
-                                     .contiguous(), torch.zeros(3, 128))
-        assert background.background_logpdf(*args).shape == (3,)
+        for d in (128, 129):
+            args[0], args[1], args[4] = (torch.zeros(2, d),
+                                         torch.eye(d).expand(2, d, d)
+                                         .contiguous(), torch.zeros(3, d))
+            assert background.background_logpdf(*args).shape == (3,)
     else:
         d = 46
         args = [torch.eye(d).expand(2, d, d).contiguous(), torch.zeros(2, d),

@@ -48,10 +48,10 @@ def zamtrux_overrides(ratio=2.0, **kw):
     return over
 
 
-def build_pair(dims=DIMS, codename="SAMTRON", **kw):
+def build_pair(dims=DIMS, codename="SAMTRON", ratio=None, **kw):
     """(jax_gmmvi, torch_gmmvi) on the same Student-T target and the same
     initial mixture, both on the CPU; ``codename`` SAMTRON or ZAMTRUX with
-    its overrides above."""
+    its overrides above, ``ratio`` (when given) the sample reuse."""
     import gmmvi_tpu.configs as jcfg
     from gmmvi_tpu.experiments.setup import init_experiment as j_init
     from gmmvi_tpu.experiments.targets.student_t_mixture import \
@@ -66,6 +66,9 @@ def build_pair(dims=DIMS, codename="SAMTRON", **kw):
 
     over = (zamtrux_overrides if codename == "ZAMTRUX"
             else samtron_overrides)(**kw)
+    if ratio is not None:
+        over["sample_selector_config"]["ratio_reused_samples_to_desired"] = \
+            ratio
     jt = j_target(dims, False, seed=0)
     jc = jcfg.update_config(jcfg.get_default_algorithm_config(codename),
                             over)
@@ -134,9 +137,10 @@ def assert_states_match(t_named: dict, j_named: dict, rtol=1e-4,
 
 
 def mc_elbo(model_logpdf, target_logpdf, means, chols, log_weights,
-            num_active, rng_state=99, n=2000):
+            num_active, rng_state=99, n=2000, with_se=False):
     """ELBO estimate from n mixture draws made with numpy (component by
-    inverse CDF of shared uniforms, then mu + L eps)."""
+    inverse CDF of shared uniforms, then mu + L eps); with ``with_se``,
+    (estimate, its Monte Carlo standard error)."""
     rng = np.random.RandomState(rng_state)
     k = num_active
     w = np.exp(log_weights[:k].astype(np.float64))
@@ -144,4 +148,7 @@ def mc_elbo(model_logpdf, target_logpdf, means, chols, log_weights,
                                       rng.uniform(size=n)), k - 1)
     eps = rng.standard_normal((n, means.shape[1])).astype(np.float32)
     x = means[comp] + np.einsum("nij,nj->ni", chols[comp], eps)
-    return float(np.mean(target_logpdf(x) - model_logpdf(x)))
+    ratios = target_logpdf(x) - model_logpdf(x)
+    if with_se:
+        return float(np.mean(ratios)), float(np.std(ratios) / np.sqrt(n))
+    return float(np.mean(ratios))
