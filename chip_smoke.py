@@ -14,28 +14,39 @@ printing one JSON line:
    kernel, so the host's time is hidden), ``call_ms`` one call on an idle
    card with the host's part included (median of 50); with its least
    possible time on an H100 (``bound_ms``);
-4. main paths, each through ``GMMVI.build_from_config`` and ``train_iter``
-   for 130 iterations, with the launch counters set to 0 just before it and
-   read just after, and checks on what comes out: SAMTRON on the 20-D
-   Student-T mixture (45 components padded to 48, 200 samples per
-   component, full covariances, no sample reuse; kernels B1-B3), then
-   ZAMTRUX (VIPS: MORE, sample reuse at 2.0 x 200 per component, direct
-   weight update; kernels B1-B4 and B8) at the same widths, then SAMTRON on
-   the 300-D Student-T mixture, ``get_default_config("SAMTRON",
-   "stm300")`` (20 components padded to 40, 100 fresh and 200 reused
-   samples per component; kernels B5-B7 and the whitened trust-region
-   update; 61 iterations instead of 130 if its step exceeds 150 ms; held to
-   an improving ELBO, estimated as the JAX package's runner does);
+4. main paths, each through its entry points, with the launch counters
+   set to 0 just before it and read just after, and checks on what comes
+   out.  Through ``GMMVI.build_from_config`` and ``train_iter`` for 130
+   iterations: SAMTRON on the 20-D Student-T mixture (45 components padded
+   to 48, 200 samples per component, full covariances, no sample reuse;
+   kernels B1-B3, and B9 in the add heuristic), then ZAMTRUX (VIPS: MORE,
+   sample reuse at 2.0 x 200 per component, direct weight update; kernels
+   B1-B4, B8 and B9) at the same widths, then SAMTRON on the 300-D
+   Student-T mixture, ``get_default_config("SAMTRON", "stm300")`` (20
+   components padded to 40, 100 fresh and 200 reused samples per
+   component; kernels B5-B7 and the whitened trust-region update; 61
+   iterations instead of 130 if its step exceeds 150 ms; held to an
+   improving ELBO, the runner's estimate).  Then the runner path as the
+   quick start runs it: ``GmmviRunner.build_from_config(get_default_config(
+   "SAMTRON", "gmm20"))`` and ``iterate_and_log(n)`` for n = 0..1499 (600
+   iterations if the median step passes 60 ms): 1 component padded to 24
+   and grown by VIPS, 100 fresh and 200 reused samples per component, a
+   16,384-sample reservoir; kernels B1-B4 and B9 (the add heuristic over
+   the reservoir, two evaluation passes over 2,000 draws every 100
+   iterations); held to finite metrics, a rising ELBO, a repad with its
+   counts intact and a resume from a checkpoint equal to the bit;
 5. every kernel once more, on the inputs of its last launch in the
    ZAMTRUX run (B2 at both of its window sizes; the data decides how much
-   work B4 and B8 do) and in the stm300 run (B5 at each of its four call
-   sizes), against its plain version at the bar of phase 3, timed as there.
+   work B4 and B8 do), in the stm300 run (B5 at each of its four call
+   sizes) and in the runner run (B9 at its two call sizes), against its
+   plain version at the bar of phase 3, timed as there.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
-B5-B7), the card's name and power limit as ``nvidia-smi`` gives them, and
-last ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure
-exits non-zero before that line.  Without a CUDA card it exits 1.
+B5-B7, the runner for B9), the card's name and power limit as
+``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
+Nothing is caught: any failure exits non-zero before that line.  Without
+a CUDA card it exits 1.
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -62,6 +74,12 @@ N_REUSE_LARGE = KMAX_LARGE * 2 * N_DES_LARGE            # 8,000
 N_LARGE = N_REUSE_LARGE + KMAX_LARGE * N_DES_LARGE      # 12,000
 U_LARGE = min(4 * KMAX_LARGE, 2048)                     # 160
 LARGE_STEP_MS_CAP, LARGE_ITERS_CUT = 150.0, 61
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+# the runner path: get_default_config("SAMTRON", "gmm20") as the quick start
+# runs it, 1,500 iterations (600 if the median step passes 60 ms)
+RUNNER_ITERS, RUNNER_STEP_MS_CAP, RUNNER_ITERS_CUT = 1500, 60.0, 600
+RUNNER_RESUME_STEPS = 20
+N_EVAL, N_CANDIDATES = 2000, 16384      # B9's two call sizes on that path
 
 
 def emit(obj) -> None:
@@ -508,7 +526,8 @@ def kernel_phase(dev):
         raise AssertionError(f"tr_kl disagrees with its plain version: "
                              f"{row['max_abs_err']}")
     rows.append(row)
-    return rows + reuse_kernel_rows(dev) + large_kernel_rows(dev)
+    return (rows + reuse_kernel_rows(dev) + large_kernel_rows(dev)
+            + mixture_logpdf_rows(dev))
 
 
 def large_inputs(dev):
@@ -693,6 +712,88 @@ def large_kernel_rows(dev):
     return [b5, b6, b7]
 
 
+def mixture_inputs(dev, n: int, d: int = D, k: int = KMAX, live: int = 30,
+                   seed: int = 7):
+    """B9's inputs as the runner path makes them: a model of ``k`` slots
+    of which ``live`` are active (gmm20 grows from 1 to some dozens of
+    components in 48 slots), means spread as the GMM target's modes
+    (100 (U - 0.5)) with covariances of its scale, and ``n`` samples drawn
+    around the active means (the evaluation's draws, the add heuristic's
+    reservoir candidates).  Made on the card from a seed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    opts = dict(generator=g, device=dev)
+    means = 100.0 * (torch.rand(k, d, **opts) - 0.5)
+    a = torch.randn(k, d, d, **opts) * 2.0   # gmm20's A ~ 0.1 N(0, 20)
+    chols = torch.linalg.cholesky(a @ a.mT + torch.eye(d, device=dev))
+    inv_chols = torch.linalg.solve_triangular(
+        chols, torch.eye(d, device=dev).expand(k, d, d), upper=False)
+    logw = torch.full((k,), -math.log(live), device=dev)
+    logw[live:] = -math.inf
+    logdets = torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)).sum(-1)
+    comp = torch.randint(0, live, (n,), **opts)
+    x = means[comp] + torch.einsum(
+        "nij,nj->ni", chols[comp], torch.randn(n, d, **opts)) * 1.5
+    return [t.contiguous() for t in (means, inv_chols, logw, logdets, x)]
+
+
+def measure_mixture_logpdf(args) -> dict:
+    """B9 on ``args`` against its plain version (-inf in the same places,
+    rtol and atol 1e-4 elsewhere: the Pallas kernel's bar), device times
+    and the bound these inputs need: each live slot whitens every sample
+    against its lower triangle.  Above D = 128 the wrapper runs B5."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import mixture_logpdf as mops
+
+    got = mops.mixture_logpdf(*args)
+    want = mops.mixture_logpdf_plain(*args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    err, ok = max_err(got[fin], want[fin], atol=1e-4, rtol=1e-4)
+    ok = ok and torch.equal(torch.isneginf(got), torch.isneginf(want))
+    (k, d), n = args[0].shape, args[4].shape[0]
+    live = int((args[2] > -math.inf).sum())
+    tri = d * (d + 1) / 2
+    b_ms, b_by = bound_ms(2 * live * n * tri,
+                          4 * (k + live * (d + tri + 1) + n * d + n))
+    return dict(max_abs_err=err, ok=ok, slots=k, live_slots=live, samples=n,
+                dims=d, ms=device_ms(lambda: mops.mixture_logpdf(*args)),
+                plain_ms=device_ms(lambda: mops.mixture_logpdf_plain(*args)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def mixture_logpdf_rows(dev):
+    """B9 at the runner path's two call sizes at D = 20 (the row of the
+    kernels line: the add heuristic's 16,384 candidates) and at D = 300,
+    where it takes B5 (``chip_smoke``'s stm300 ELBO calls it there)."""
+    from gmmvi_tpu_torch.ops import mixture_logpdf as mops
+
+    row = None
+    for n, d, k, live in ((N_CANDIDATES, D, KMAX, 30), (N_EVAL, D, KMAX, 30),
+                          (N_EVAL, D_LARGE, KMAX_LARGE, 24)):
+        args = mixture_inputs(dev, n, d, k, live)
+        out = dict(name="mixture_logpdf", route="cuda",
+                   source="gmmvi_tpu_torch/csrc/background.cu",
+                   replaces="gmmvi_tpu/ops/pallas_kernels.py:53",
+                   tolerance="rtol 1e-4 + atol 1e-4; -inf in the same "
+                             "places",
+                   via="B9" if d <= 128 else "B5 (D > 128)",
+                   **measure_mixture_logpdf(args),
+                   call_ms=call_ms(lambda: mops.mixture_logpdf(*args)),
+                   library_ms=None,
+                   library="none: no single PyTorch call computes a "
+                           "Gaussian mixture's log-density from its factors")
+        emit({"phase": "kernel", **out})
+        if not out["ok"]:
+            raise AssertionError(f"mixture_logpdf disagrees with its plain "
+                                 f"version at N={n}, D={d}: "
+                                 f"{out['max_abs_err']}")
+        row = row or out
+    return [row]
+
+
 def flagship_config(seed: int = 0, codename: str = "SAMTRON") -> dict:
     """SAMTRON on the 20-D Student-T mixture: the flagship workload.  With
     ``codename="ZAMTRUX"`` the same widths under VIPS, with the M letter's
@@ -736,25 +837,17 @@ def newest_window_mean_lnpdf(db) -> float:
     return float(db.target_lnpdfs[sel].mean())
 
 
-def mc_elbo(model, target, n: int = 2000, seed: int = 0):
-    """(ELBO, mean target log-density) as the JAX package's runner
-    estimates them (``GmmviRunner.get_expensive_metrics``, temperature 1):
-    means of log p(x) - log q(x) and of log p(x) over ``n`` draws from the
-    mixture, made on the card from ``seed``.  Their difference is the
-    entropy estimate."""
+def elbo(model, target, seed: int = 0):
+    """(ELBO, mean target log-density) of ``model`` from the runner's
+    estimate (``runner.sample_elbo``: 2,000 draws of the mixture, made on
+    the card from ``seed``; temperature 1)."""
     import torch
 
-    from gmmvi_tpu_torch.models import gmm
+    from gmmvi_tpu_torch.runner import sample_elbo
 
-    dev = model.means.device
-    g = torch.Generator(device=dev).manual_seed(seed)
-    comp = torch.multinomial(torch.where(model.mask, model.weights, 0.0), n,
-                             replacement=True, generator=g)
-    eps = torch.randn((n, model.num_dimensions), generator=g, device=dev)
-    x = model.means[comp] + torch.einsum("nij,nj->ni", model.chols[comp], eps)
-    lnp = target.log_density(x)
-    return (float((lnp - gmm.log_density(model, x)).mean()),
-            float(lnp.mean()))
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    metrics, _ = sample_elbo(model, target, 1.0, generator=g)
+    return -metrics["-elbo"], metrics["target_density"]
 
 
 def recording(captured: dict, module, attr, key=None):
@@ -979,7 +1072,7 @@ def large_d_phase(dev, captured):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     start_lnpdf = newest_window_mean_lnpdf(gmmvi.state.db)
-    start_elbo, start_density = mc_elbo(gmmvi.state.model, target)
+    start_elbo, start_density = elbo(gmmvi.state.model, target)
     iters, done, probe_ms = MAIN_ITERS, 1, None
     t0 = time.perf_counter()
     while done < iters:
@@ -1000,7 +1093,7 @@ def large_d_phase(dev, captured):
     st = gmmvi.state
     num_active = int(st.model.num_active)
     end_lnpdf = newest_window_mean_lnpdf(st.db)
-    end_elbo, end_density = mc_elbo(st.model, target)
+    end_elbo, end_density = elbo(st.model, target)
     means_finite = bool(torch.isfinite(st.model.means[:num_active]).all())
     reused = [int(r) for r in reused]
     fevals = int(st.db.num_samples_written)
@@ -1051,10 +1144,19 @@ def large_d_phase(dev, captured):
 def large_d_input_rows(captured) -> None:
     """B5 at each of its call sizes, B6 and B7 once more on the inputs of
     their last launch in the stm300 run, against their plain versions at
-    the kernel phase's bars; fails on a miss."""
+    the kernel phase's bars; fails on a miss.  B5's sizes: the step's four
+    (the pack and the weight update over the total window, the ESS pass
+    over the reuse window, the background over U ring rows at both), and
+    B9's two through B5 (the add heuristic's reservoir candidates, the ELBO
+    estimate's draws)."""
     keys = sorted(k for k in captured if isinstance(k, tuple))
-    if len(keys) != 4:
-        raise AssertionError(f"expected B5 at four call sizes, got {keys}")
+    step_sizes = {(k[0], k[2]) for k in keys} & {
+        ("densities_large", N_REUSE_LARGE), ("densities_large", N_LARGE),
+        ("mixture_logpdf_large", N_REUSE_LARGE),
+        ("mixture_logpdf_large", N_LARGE)}
+    if len(step_sizes) != 4 or len(keys) != 6:
+        raise AssertionError(f"expected B5 at four step sizes and B9's two, "
+                             f"got {keys}")
     measures = [(f"{key[0]}[K={key[1]},N={key[2]}]",
                  lambda key=key: measure_large_density(key[0], captured[key]))
                 for key in keys]
@@ -1069,6 +1171,238 @@ def large_d_input_rows(captured) -> None:
         if not out["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the stm300 path's inputs: {out}")
+
+
+def runner_config(max_components=None) -> dict:
+    """``get_default_config("SAMTRON", "gmm20")`` as the quick start
+    builds it; with ``max_components``, a smaller padded capacity."""
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
+
+    cfg = get_default_config("SAMTRON", "gmm20")
+    if max_components is not None:
+        cfg = update_config(cfg, {"tpu": {"max_components": max_components}})
+    return cfg
+
+
+def build_runner(dev, cfg):
+    """``GmmviRunner.build_from_config`` on the card, with the target's
+    figures off (the card's machine has no matplotlib)."""
+    from gmmvi_tpu_torch.runner import GmmviRunner
+
+    runner = GmmviRunner.build_from_config(cfg, device=dev)
+    runner.target_distribution.make_plots = False
+    return runner
+
+
+def written_in_order(db):
+    """The ring's newest ``min(written, capacity)`` samples (and their
+    iterations and target log-densities) in the order they were written."""
+    import torch
+
+    written = int(db.write_pos)
+    m = min(written, db.capacity)
+    pos = torch.arange(written - m, written, device=db.samples.device) \
+        % db.capacity
+    return db.samples[pos], db.sample_iter[pos], db.target_lnpdfs[pos]
+
+
+def watch_repads(gmmvi, repads: list) -> None:
+    """Record each capacity growth of ``gmmvi`` in ``repads`` (and emit
+    it): the capacities before and after, its time, and whether the counts
+    (fevals, ring head, reservoir count, components) and the written
+    samples in their order came through it unchanged."""
+    import torch
+
+    grow = gmmvi.grow_capacity
+
+    def counts(st):
+        return (int(st.db.num_samples_written), int(st.db.write_pos),
+                int(st.db.res_count), int(st.model.num_active))
+
+    def recording_grow(new_max_components):
+        st = gmmvi.state
+        before, kept = counts(st), written_in_order(st.db)
+        kmax, cap = st.model.max_components, st.db.capacity
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grow(new_max_components)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = gmmvi.state
+        intact = counts(st) == before and all(
+            torch.equal(a, b[len(b) - len(a):])
+            for a, b in zip(kept, written_in_order(st.db)))
+        repads.append(dict(
+            iteration=st.num_updates, kmax_from=kmax,
+            kmax_to=st.model.max_components, capacity_from=cap,
+            capacity_to=st.db.capacity, fevals=before[0],
+            num_active=before[3], counts_intact=intact, ms=ms))
+        emit({"phase": "repad", **repads[-1]})
+
+    gmmvi.grow_capacity = recording_grow
+
+
+def runner_phase(dev, captured):
+    """The runner path, as docs/get_started.md runs it:
+    ``GmmviRunner.build_from_config(get_default_config("SAMTRON",
+    "gmm20"))`` and ``iterate_and_log(n)`` for n = 0..1499 (0..599 if the
+    median of steps 1-10 passes 60 ms), the launch counters set to 0 just
+    before and read just after; B9's last inputs at each call size go to
+    ``captured``.  Holds: every metric finite, the last evaluation's ELBO
+    above the first's, a repad with its counts intact (if the run never
+    fills its 24 slots, the same config with 8 slots runs until it
+    repads), and resume: a checkpoint saved halfway, loaded into a fresh
+    runner, gives the unbroken run's state after 20 more steps, to the
+    bit."""
+    import numpy as np
+    import torch
+
+    from gmmvi_tpu_torch import state_to_numpy
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import mixture_logpdf as mops
+
+    runner = build_runner(dev, runner_config())
+    g, sel = runner.gmmvi, runner.gmmvi.selector_cfg
+    shape = (g.model.num_dimensions, g.model.max_components,
+             sel.desired_samples_per_component,
+             sel.reused_samples_per_component,
+             g.state.db.reservoir_capacity, runner.log_metrics_interval,
+             g.vips_cfg.add_iters, g.vips_cfg.del_iters,
+             g.vips_cfg.max_components, g.vips_cfg.num_database_samples)
+    if shape != (D, 24, 100, 200, N_CANDIDATES, 100, 30, 100, 1000,
+                 N_CANDIDATES):
+        raise AssertionError(f"gmm20 built as {shape}")
+    restore = [recording(captured, mops, "mixture_logpdf",
+                         key=lambda args: ("mixture_logpdf",
+                                           args[4].shape[0]))]
+    repads, evals, walls = [], [], []
+    watch_repads(g, repads)
+    path = BUILD_DIR / "runner_resume.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    iters, probe_ms, snapshot = RUNNER_ITERS, None, None
+    resume_at = iters // 2
+    t_start = time.perf_counter()
+    n = 0
+    while n < iters:
+        t0 = time.perf_counter()
+        out = runner.iterate_and_log(n)
+        call_s = time.perf_counter() - t0
+        walls.append(out["walltime"])
+        if "-elbo" in out:
+            evals.append(dict(
+                iteration=n, elbo=-out["-elbo"],
+                target_density=out["target_density"],
+                entropy=out["entropy"], num_components=out["num_components"],
+                fevals=out["num_samples"], kmax=g.model.max_components,
+                num_detected_modes=out["num_detected_modes"],
+                eval_ms=(call_s - out["walltime"]) * 1e3,
+                finite=all(math.isfinite(v) for v in out.values()
+                           if isinstance(v, (int, float)))))
+            emit({"phase": "runner_eval", **evals[-1]})
+        if n == 10:
+            probe_ms = statistics.median(walls[1:11]) * 1e3
+            if probe_ms > RUNNER_STEP_MS_CAP:
+                iters = RUNNER_ITERS_CUT
+                resume_at = iters // 2
+        if n == resume_at:
+            runner.save_checkpoint(str(path))
+        if n == resume_at + RUNNER_RESUME_STEPS:
+            snapshot = state_to_numpy(g.state)
+        n += 1
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t_start
+    launches = dict(cuda.LAUNCHES)
+    for undo in restore:
+        undo()
+    del g.grow_capacity
+    st = g.state
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+
+    # resume: the checkpoint into a fresh runner, 20 steps, the same state
+    fresh = build_runner(dev, runner_config())
+    fresh.load_checkpoint(str(path))
+    for m in range(resume_at + 1, resume_at + 1 + RUNNER_RESUME_STEPS):
+        fresh.iterate_and_log(m)
+    resumed = state_to_numpy(fresh.gmmvi.state)
+    differ = {k: (str(resumed[k].shape) if resumed[k].shape != v.shape else
+                  float(np.nanmax(np.abs(resumed[k].astype(np.float64)
+                                         - v.astype(np.float64)))))
+              for k, v in snapshot.items()
+              if not np.array_equal(resumed[k], v,
+                                    equal_nan=v.dtype.kind == "f")}
+    path.unlink()
+
+    small_repads = []
+    if not repads:   # never filled its 24 slots: grow from 8 instead
+        small = build_runner(dev, runner_config(max_components=8))
+        watch_repads(small.gmmvi, small_repads)
+        for m in range(600):
+            small.iterate_and_log(m)
+            if small_repads:
+                break
+
+    steps = sorted(walls)
+    out = dict(
+        phase="main_path", codename="SAMTRON", experiment="gmm20",
+        entry="GmmviRunner.iterate_and_log", iterations=iters,
+        cut_to_600=iters != RUNNER_ITERS, probe_step_ms=probe_ms,
+        first_step_s=walls[0], median_step_ms=statistics.median(steps) * 1e3,
+        mean_step_ms=sum(walls[1:]) / (iters - 1) * 1e3,
+        wall_s=total_s, evaluations=len(evals),
+        eval_ms_median=statistics.median(e["eval_ms"] for e in evals),
+        elbo_start=evals[0]["elbo"], elbo_end=evals[-1]["elbo"],
+        fevals=int(st.db.num_samples_written),
+        num_active=int(st.model.num_active),
+        kmax=st.model.max_components, repads=repads,
+        repads_from_8_slots=small_repads, launches=launches,
+        launches_per_step={k: v / iters for k, v in launches.items()},
+        resume_at=resume_at, resume_steps=RUNNER_RESUME_STEPS,
+        resume_exact=not differ, resume_differs=differ,
+        peak_mem_mb=peak_mb)
+    emit(out)
+    if not all(e["finite"] for e in evals):
+        raise AssertionError("a runner metric is not finite")
+    if not out["elbo_end"] > out["elbo_start"]:
+        raise AssertionError(f"the ELBO did not improve: {out['elbo_start']}"
+                             f" -> {out['elbo_end']}")
+    if not any(r["counts_intact"] for r in repads + small_repads):
+        raise AssertionError(f"no repad with its counts intact: "
+                             f"{repads + small_repads}")
+    if not all(r["counts_intact"] for r in repads + small_repads):
+        raise AssertionError(f"a repad broke the counts: {repads}")
+    if differ:
+        raise AssertionError(f"the resumed run differs from the unbroken "
+                             f"one: {differ}")
+    for name in ("density_pack", "densities", "tr_kl", "background_logpdf",
+                 "mixture_logpdf"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "runner path")
+    if launches["mixture_logpdf"] < 2 * len(evals):
+        raise AssertionError(f"mixture_logpdf: {launches['mixture_logpdf']}"
+                             f" launches < 2 per evaluation")
+    return launches
+
+
+def runner_input_rows(captured) -> None:
+    """B9 once more on the inputs of its last launch at each of its call
+    sizes on the runner path, against its plain version at the kernel
+    phase's bar; fails on a miss."""
+    keys = sorted(k for k in captured if isinstance(k, tuple))
+    if [k[1] for k in keys] != [N_EVAL, N_CANDIDATES]:
+        raise AssertionError(f"expected B9 at N = {N_EVAL} and "
+                             f"{N_CANDIDATES}, got {keys}")
+    for key in keys:
+        out = measure_mixture_logpdf(captured[key])
+        emit({"phase": "kernel_on_main_path_inputs", "path": "gmm20 runner",
+              "name": f"mixture_logpdf[N={key[1]}]", **out})
+        if not out["ok"]:
+            raise AssertionError(f"mixture_logpdf disagrees with its plain "
+                                 f"version on the runner's inputs: {out}")
 
 
 def main() -> int:
@@ -1095,18 +1429,22 @@ def main() -> int:
     flagship = ("density_pack", "densities", "tr_kl")
     captured: dict = {}
     captured_large: dict = {}
+    captured_runner: dict = {}
     by_path = {"SAMTRON": main_path_phase(dev, "SAMTRON", flagship),
                "ZAMTRUX": main_path_phase(
                    dev, "ZAMTRUX",
                    flagship + ("background_logpdf", "more_grams"), captured),
-               "stm300": large_d_phase(dev, captured_large)}
+               "stm300": large_d_phase(dev, captured_large),
+               "gmm20": runner_phase(dev, captured_runner)}
     main_path_input_rows(captured)
     large_d_input_rows(captured_large)
+    runner_input_rows(captured_runner)
     for r in rows:
         # the flagship's count for B1-B3, the reuse path's for B4 and B8,
-        # the stm300 path's for B5-B7
+        # the stm300 path's for B5-B7, the runner path's for B9
         path = ("SAMTRON" if r["name"] in flagship else
-                "stm300" if r["name"] in LARGE_KERNELS else "ZAMTRUX")
+                "stm300" if r["name"] in LARGE_KERNELS else
+                "gmm20" if r["name"] == "mixture_logpdf" else "ZAMTRUX")
         r["launches"] = by_path[path][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

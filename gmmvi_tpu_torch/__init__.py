@@ -3,7 +3,8 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package ``gmmvi_tpu`` with the same config schema,
 codename letters, padded ``[Kmax, ...]`` mixture state and state field
-paths.  Entry points (``GMMVI.build_from_config``, ``train_iter``,
+paths.  Entry points (``GmmviRunner.build_from_config``,
+``iterate_and_log``, ``GMMVI.build_from_config``, ``train_iter``,
 ``train_iters``, ``experiments.setup.init_experiment``) run on the CUDA
 card unless given ``device="cpu"``.
 
@@ -27,6 +28,7 @@ from gmmvi_tpu_torch.optimization.gmmvi import GMMVI, StepDraws, TrainState
 from gmmvi_tpu_torch.optimization.sample_db import SampleDbState
 from gmmvi_tpu_torch.optimization.stepsize_adapters import \
     WeightStepsizeState
+from gmmvi_tpu_torch.runner import GmmviRunner
 
 _PARTS = {"model": GmmState, "meta": MetaState, "db": SampleDbState,
           "wstep": WeightStepsizeState, "adapt": AdaptationState}
@@ -78,5 +80,5 @@ def state_from_numpy(named: Dict[str, np.ndarray], device="cuda",
     return TrainState(num_updates=int(named["num_updates"]), **parts)
 
 
-__all__ = ["GMMVI", "StepDraws", "TrainState", "state_from_numpy",
-           "state_to_numpy"]
+__all__ = ["GMMVI", "GmmviRunner", "StepDraws", "TrainState",
+           "state_from_numpy", "state_to_numpy"]

@@ -2,9 +2,10 @@
 
 (JAX counterpart: gmmvi_tpu/configs/__init__.py)
 
-The module defaults each codename letter selects, and the ``stm20`` and
-``stm300`` experiment defaults, are kept here as Python dicts: the port
-reads no YAML at run time.  They equal the YAML files of the JAX package
+The module defaults each codename letter selects, and the ``stm20``,
+``stm300``, ``gmm20`` and ``gmm100`` experiment defaults, are kept here as
+Python dicts: the port reads no YAML at run time.  They equal the YAML
+files of the JAX package
 (``gmmvi_tpu/configs/module_configs`` and ``experiment_configs``); a CPU test
 holds them to it.
 """
@@ -73,7 +74,23 @@ LETTER_DEFAULTS = {
               "stepsize_dec_factor": 0.85}},
 }
 
+_GMM_DEFAULTS = {
+    "start_seed": 10000,
+    "environment_name": "GMM",
+    "model_initialization": {"use_diagonal_covs": False,
+                             "num_initial_components": 1,
+                             "prior_mean": 0.0, "prior_scale": 31.63,
+                             "initial_cov": 1000.0},
+    "gmmvi_runner_config": {"log_metrics_interval": 100},
+    "use_sample_database": True,
+    "max_database_size": 10000000,
+    "temperature": 1.0,
+}
+
 EXPERIMENT_DEFAULTS = {
+    "gmm20": {**_GMM_DEFAULTS, "environment_config": {"num_dimensions": 20}},
+    "gmm100": {**_GMM_DEFAULTS,
+               "environment_config": {"num_dimensions": 100}},
     "stm20": {
         "start_seed": 10000,
         "environment_name": "STM",

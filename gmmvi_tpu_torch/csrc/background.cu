@@ -27,6 +27,17 @@
 // path's two-size ladder (2 Kmax or U rows, chosen by the live count) is not
 // needed.  The live rows' factors are staged in shared memory a chunk at a
 // time.  No N chunking: the TPU chunked N only for its VMEM.
+//
+// Kernel B9, the mixture log-density, is the same function over a model's
+// padded components (log weight -inf on the inactive slots): it replaces
+// gmmvi_tpu/ops/pallas_kernels.py `_mixture_logpdf_kernel` (entry
+// `fused_mixture_logpdf`), which streams the components with the same
+// running max / rescaled sum.  Its entry `gmmvi_mixture_logpdf` launches this
+// kernel; wrapper and plain version: gmmvi_tpu_torch/ops/mixture_logpdf.py.
+// At its call sites (the runner's 2,000 evaluation draws, the add
+// heuristic's 16,384 candidates, K <= ~100 live components at D = 20) it is
+// launch-bound: ~2e7 FMAs at N = 2,000 and 50 live rows, 63 blocks for 132
+// SMs.
 #include "whiten.cuh"
 
 namespace {
@@ -144,14 +155,9 @@ cudaError_t launch(const float* means, const float* inv_chols,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// out [N]; all arrays float32, contiguous, on the current device.
-// 1 <= D <= 128, U >= 0.
-extern "C" int gmmvi_background(const float* means, const float* inv_chols,
-                                const float* logw, const float* logdets,
-                                const float* x, float* out, int U, int N,
-                                int D, void* stream) {
+int launch_any(const float* means, const float* inv_chols, const float* logw,
+               const float* logdets, const float* x, float* out, int U, int N,
+               int D, void* stream) {
   if (U < 0 || D < 1 || D > 128 || N < 0) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -160,4 +166,25 @@ extern "C" int gmmvi_background(const float* means, const float* inv_chols,
                                        out, U, N, D, st);
   return (int)launch<128>(means, inv_chols, logw, logdets, x, out, U, N, D,
                           st);
+}
+
+}  // namespace
+
+// out [N]; all arrays float32, contiguous, on the current device.
+// 1 <= D <= 128, U >= 0.
+extern "C" int gmmvi_background(const float* means, const float* inv_chols,
+                                const float* logw, const float* logdets,
+                                const float* x, float* out, int U, int N,
+                                int D, void* stream) {
+  return launch_any(means, inv_chols, logw, logdets, x, out, U, N, D, stream);
+}
+
+// B9: out [N] = logsumexp_k(log N(x_n; mu_k, Sigma_k) + logw_k) over the K
+// slots with a finite log weight, -inf where there is none.  Same arguments
+// and limits as gmmvi_background, with K in place of U.
+extern "C" int gmmvi_mixture_logpdf(const float* means, const float* inv_chols,
+                                    const float* logw, const float* logdets,
+                                    const float* x, float* out, int K, int N,
+                                    int D, void* stream) {
+  return launch_any(means, inv_chols, logw, logdets, x, out, K, N, D, stream);
 }

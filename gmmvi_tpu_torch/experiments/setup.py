@@ -21,8 +21,9 @@ from gmmvi_tpu_torch.models.meta import MetaState
 def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
                      device="cuda") -> LNPDF:
     """Environment-name registry; the port has the Student-T mixture
-    ("STM") so far.  The target is seeded with the run seed unless
-    ``environment_config`` names its own."""
+    ("STM") and the full-covariance GMM targets ("GMM*") so far.  Random
+    targets are seeded with the run seed unless ``environment_config``
+    names its own."""
     environment_config = dict(environment_config or {})
     target_seed = environment_config.pop("seed", seed)
     if experiment == "STM":
@@ -30,8 +31,17 @@ def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
             make_target
         return make_target(seed=target_seed, device=device,
                            **environment_config)
+    if experiment.startswith("DIAGGMM"):
+        raise NotImplementedError(
+            "diagonal GMM targets are not ported yet (full covariances "
+            "only)")
+    if experiment.startswith("GMM"):
+        from gmmvi_tpu_torch.experiments.targets.gmm import make_target
+        return make_target(seed=target_seed, device=device,
+                           **environment_config)
     raise NotImplementedError(
-        f"target '{experiment}' is not ported yet (the port has STM)")
+        f"target '{experiment}' is not ported yet (the port has STM and "
+        "GMM)")
 
 
 def construct_initial_mixture(

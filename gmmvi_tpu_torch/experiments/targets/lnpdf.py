@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -33,3 +34,29 @@ class LNPDF:
             ld = self.log_density(x)
             (grads,) = torch.autograd.grad(ld.sum(), x)
         return ld.detach(), grads
+
+    def expensive_metrics(self, model_state, samples) -> dict:
+        """Task-specific metrics for the runner's evaluations; none by
+        default."""
+        return {}
+
+
+def detected_modes_metrics(target, model_state, x_range, grid) -> dict:
+    """The runner metrics of a mixture target with modes at
+    ``target.target_means``: the number of modes whose nearest learned mean
+    lies within ||6 * 1||_2 and, with ``target.make_plots``, the figure of
+    the marginals over ``x_range`` on a ``grid`` of axes."""
+    active = int(model_state.num_active)
+    means = model_state.means[:active].detach().cpu().numpy()
+    dists = np.linalg.norm(
+        target.target_means[:, None, :] - means[None, :, :], axis=2
+    ).min(axis=1)
+    threshold = np.linalg.norm(6.0 * np.ones(target.get_num_dimensions()))
+    metrics = {"num_detected_modes": int(np.sum(dists < threshold))}
+    if target.make_plots and target.get_num_dimensions() >= 2:
+        from gmmvi_tpu_torch.experiments.evaluation.plotting import \
+            marginal_comparison_figure
+
+        metrics["marginals"] = marginal_comparison_figure(
+            target, model_state, x_range, grid=grid)
+    return metrics

@@ -9,20 +9,23 @@ with m the squared Mahalanobis distance under the scale matrix L L^T.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from gmmvi_tpu_torch.device import resolve_device
-from gmmvi_tpu_torch.experiments.targets.lnpdf import LNPDF
+from gmmvi_tpu_torch.experiments.targets.lnpdf import (LNPDF,
+                                                       detected_modes_metrics)
 
 
 class StudentTMixture_LNPDF(LNPDF):
     """Student-T mixture with analytic log density and gradient."""
 
     def __init__(self, target_weights, target_means, target_covs, alpha=2,
-                 device="cuda"):
+                 make_plots=True, device="cuda"):
         dev = resolve_device(device)
+        self.make_plots = make_plots
         self.alpha = float(alpha)
         self.target_weights = np.asarray(target_weights, np.float32)
         self.target_means = np.asarray(target_means, np.float32)
@@ -31,6 +34,7 @@ class StudentTMixture_LNPDF(LNPDF):
         chols = np.linalg.cholesky(self.target_covs.astype(np.float64))
         f32 = dict(dtype=torch.float32, device=dev)
         self._means = torch.as_tensor(self.target_means, **f32)
+        self._chols = torch.as_tensor(chols, **f32)
         self._inv_chols = torch.as_tensor(np.linalg.inv(chols), **f32)
         self._log_dets = torch.as_tensor(
             np.sum(np.log(np.diagonal(chols, axis1=-2, axis2=-1)), axis=-1),
@@ -67,8 +71,43 @@ class StudentTMixture_LNPDF(LNPDF):
         grads = -torch.einsum("kij,kni,kn->nj", self._inv_chols, y, scale)
         return ld, grads
 
+    def marginal_log_density(self, x, dim):
+        """1-D marginal mixture of Student-Ts along ``dim``."""
+        nu = self.alpha
+        x = torch.as_tensor(x, dtype=torch.float32,
+                            device=self._means.device)[:, dim]
+        mu = self._means[:, dim]
+        scale = torch.sqrt(torch.as_tensor(self.target_covs[:, dim, dim],
+                                           device=self._means.device))
+        z = (x[None, :] - mu[:, None]) / scale[:, None]
+        const = (math.lgamma(0.5 * (nu + 1)) - math.lgamma(0.5 * nu)
+                 - 0.5 * math.log(nu * math.pi))
+        comp = const - torch.log(scale)[:, None] \
+            - 0.5 * (nu + 1) * torch.log1p(torch.square(z) / nu)
+        return torch.logsumexp(comp + self._log_w[:, None], dim=0)
+
     def get_num_dimensions(self):
         return self.target_means.shape[1]
+
+    def can_sample(self):
+        return True
+
+    def sample(self, n: int, generator: Optional[torch.Generator] = None):
+        """``x = mu_k + L_k z sqrt(nu / chi2_nu)`` with k drawn by the
+        weights."""
+        dev, d = self._means.device, self.get_num_dimensions()
+        comp = torch.multinomial(torch.exp(self._log_w), n, replacement=True,
+                                 generator=generator)
+        z = torch.randn((n, d), generator=generator, device=dev)
+        chi2 = 2.0 * torch._standard_gamma(
+            torch.full((n,), 0.5 * self.alpha, device=dev),
+            generator=generator)
+        lz = torch.einsum("nij,nj->ni", self._chols[comp], z)
+        return self._means[comp] + lz * torch.sqrt(self.alpha / chi2)[:, None]
+
+    def expensive_metrics(self, model_state, samples) -> dict:
+        return detected_modes_metrics(self, model_state, (-25, 25),
+                                      grid=(5, 4))
 
 
 def make_target(num_dimensions: int, harder_setting: bool,

@@ -21,6 +21,7 @@ import torch
 from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.ops import density as density_ops
 from gmmvi_tpu_torch.ops import density_large as density_large_ops
+from gmmvi_tpu_torch.ops import mixture_logpdf as mixture_ops
 from gmmvi_tpu_torch.ops.blocked_linalg import tril_inverse
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 
@@ -132,8 +133,27 @@ def component_log_densities(state: GmmState, samples: torch.Tensor
 
 
 def log_density(state: GmmState, samples: torch.Tensor) -> torch.Tensor:
-    """``[N]`` mixture log density."""
-    comp = component_log_densities(state, samples)
+    """``[N]`` mixture log density: kernel B9 on the card (B5's mixture
+    output at D > 128); on the CPU its plain version, the arithmetic of
+    :func:`component_log_densities` and ``masked_logsumexp``."""
+    _full_cov_only(state.diagonal)
+    return mixture_ops.mixture_logpdf(*_kernel_args(state), samples)
+
+
+def density(state: GmmState, samples: torch.Tensor) -> torch.Tensor:
+    """``exp`` of the mixture log density."""
+    return torch.exp(log_density(state, samples))
+
+
+def marginal_log_density(state: GmmState, samples: torch.Tensor, dim: int
+                         ) -> torch.Tensor:
+    """``[N]`` 1-D marginal mixture log density along ``dim``."""
+    _full_cov_only(state.diagonal)
+    x = samples[:, dim]
+    mu = state.means[:, dim]
+    var = torch.sum(torch.square(state.chols[:, dim, :]), dim=-1)
+    comp = (-0.5 * torch.square(x[None, :] - mu[:, None]) / var[:, None]
+            - 0.5 * torch.log(var)[:, None] - 0.5 * LOG_2PI)
     return masked_logsumexp(comp + state.log_weights[:, None],
                             mask=state.mask[:, None], dim=0)
 
@@ -217,6 +237,37 @@ def sample_from_components(state: GmmState, eps: torch.Tensor
                                                   eps)
 
 
+def sample_categorical(state: GmmState, num_samples: int,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """``[num_samples]`` component indices drawn by the active weights."""
+    return torch.multinomial(state.weights, num_samples, replacement=True,
+                             generator=generator)
+
+
+def sample(state: GmmState, num_samples: int,
+           generator: Optional[torch.Generator] = None,
+           comp: Optional[torch.Tensor] = None,
+           eps: Optional[torch.Tensor] = None):
+    """(samples ``[n, D]``, mapping ``[n]``) drawn from the mixture.
+
+    The mapping is sorted, so draws of one component are contiguous and the
+    i-th mapping entry is the component of the i-th sample, as in the JAX
+    package.  ``comp`` (unsorted component indices) and ``eps`` (standard
+    normal ``[n, D]``) are drawn from ``generator`` unless given, so a test
+    can inject the JAX package's draws."""
+    _full_cov_only(state.diagonal)
+    if comp is None:
+        comp = sample_categorical(state, num_samples, generator)
+    if eps is None:
+        eps = torch.randn((num_samples, state.num_dimensions),
+                          generator=generator, device=state.device)
+    mapping = torch.sort(comp.long()).values
+    smp = state.means[mapping] + torch.einsum("nij,nj->ni",
+                                              state.chols[mapping], eps)
+    return smp, mapping
+
+
 # ---------------------------------------------------------------------------
 # Structural updates (all statically shaped)
 # ---------------------------------------------------------------------------
@@ -293,4 +344,22 @@ def remove_components(state: GmmState, keep: torch.Tensor) -> GmmState:
         chols=chols,
         inv_chols=tril_inverse(chols),
         num_active=num_active,
+    )
+
+
+def repad(state: GmmState, new_max_components: int) -> GmmState:
+    """Grow the padded capacity to ``new_max_components`` slots (inactive:
+    log weight -inf, zero mean, identity factors); no-op if not larger."""
+    kmax, d = state.max_components, state.num_dimensions
+    extra = new_max_components - kmax
+    if extra <= 0:
+        return state
+    f32 = dict(dtype=torch.float32, device=state.device)
+    pad_chol = torch.eye(d, **f32).expand(extra, d, d)
+    return state.replace(
+        log_weights=torch.cat([state.log_weights,
+                               torch.full((extra,), NEG_INF, **f32)]),
+        means=torch.cat([state.means, torch.zeros((extra, d), **f32)]),
+        chols=torch.cat([state.chols, pad_chol]),
+        inv_chols=torch.cat([state.inv_chols, pad_chol]),
     )

@@ -130,3 +130,37 @@ def remove_components_meta(meta: MetaState, order: torch.Tensor
         adding_thresholds=meta.adding_thresholds[order],
         initial_entropies=meta.initial_entropies[order],
     )
+
+
+def repad_meta(meta: MetaState, new_max_components: int) -> MetaState:
+    """Grow the padded capacity (companion of
+    :func:`gmmvi_tpu_torch.models.gmm.repad`): new slots carry the JAX
+    package's pad values (the initial stepsize and regularizer, no warm
+    start, histories F32_MIN, id -1 until an add assigns one, entropy 0);
+    no-op if not larger."""
+    kmax, h = meta.max_components, meta.reward_history.shape[1]
+    extra = new_max_components - kmax
+    if extra <= 0:
+        return meta
+    dev = meta.stepsizes.device
+
+    def pad1(arr, value, dtype=torch.float32):
+        return torch.cat([arr, torch.full((extra,), value, dtype=dtype,
+                                          device=dev)])
+
+    def pad_hist(arr):
+        return torch.cat([arr, torch.full((extra, h), F32_MIN,
+                                          dtype=torch.float32, device=dev)])
+
+    return meta.replace(
+        l2_regularizers=pad1(meta.l2_regularizers, meta.initial_regularizer),
+        last_etas=pad1(meta.last_etas, -1.0),
+        num_received_updates=pad1(meta.num_received_updates, 0.0),
+        stepsizes=pad1(meta.stepsizes, meta.initial_stepsize),
+        reward_history=pad_hist(meta.reward_history),
+        weight_history=pad_hist(meta.weight_history),
+        unique_component_ids=pad1(meta.unique_component_ids, -1,
+                                  torch.int32),
+        adding_thresholds=pad1(meta.adding_thresholds, -1.0),
+        initial_entropies=pad1(meta.initial_entropies, 0.0),
+    )

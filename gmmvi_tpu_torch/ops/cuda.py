@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"density_pack": 0, "densities": 0, "tr_kl": 0,
                              "background_logpdf": 0, "more_grams": 0,
                              "densities_large": 0, "density_grads_large": 0,
-                             "stein_smom": 0}
+                             "stein_smom": 0, "mixture_logpdf": 0}
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "background.cu": {
         # means, inv_chols, logw, logdets, x, out, U, N, D, stream
         "gmmvi_background": [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr],
+        # means, inv_chols, logw, logdets, x, out, K, N, D, stream
+        "gmmvi_mixture_logpdf": [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr],
     },
     "more.cu": {
         # inv_chols, means, w, y, x, gram, rhs, K, N, D, stream

@@ -15,11 +15,15 @@ components.
 Every random draw of a step comes from the instance's ``torch.Generator``
 unless the caller passes a :class:`StepDraws` with its own.  The iteration
 count is a host integer (``TrainState.num_updates``), so the adaptation
-gates need no device read; the bisections read one flag per trip.
+gates need no device read; the bisections read one flag per trip.  When
+VIPS fills the padded capacity below its ``max_components``, the state is
+repadded between steps (:meth:`GMMVI.grow_capacity`), as the JAX package
+does.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,6 +32,7 @@ import torch
 
 from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.experiments.targets.lnpdf import LNPDF
+from gmmvi_tpu_torch.models import gmm as gmm_ops
 from gmmvi_tpu_torch.models import meta as meta_ops
 from gmmvi_tpu_torch.models.gmm import GmmState
 from gmmvi_tpu_torch.models.meta import MetaState
@@ -102,7 +107,6 @@ class GMMVI:
         self.vips_cfg = vips_cfg
         self.device = device
         self.generator = torch.Generator(device=device).manual_seed(seed)
-        self._steps_to_capacity_check = 1
 
     # ------------------------------------------------------------------
     # Random draws
@@ -211,29 +215,67 @@ class GMMVI:
         return self._update_phase(state, prop, lnpdfs, grads, draws)
 
     # ------------------------------------------------------------------
-    # Public API
+    # Capacity growth (VIPS can outgrow the initial padding)
     # ------------------------------------------------------------------
-    def _check_capacity(self) -> None:
-        """Every ``add_iters`` steps while VIPS may still grow past the
-        padded capacity: raise if the padding is full (the JAX package
-        repads here; the port does not yet)."""
+    def grow_capacity(self, new_max_components: int) -> None:
+        """Grow the padded component capacity of the whole state: model,
+        meta-state, the distribution ring's component axis and the sample
+        ring (to the window of the new capacity).  Window contents,
+        meta-state and feval counts are kept exactly; the selector's
+        settings (``max_background_dists`` included) stay as built."""
+        state = self.state
+        if new_max_components <= state.model.max_components:
+            return
+        new_cap = sel_ops.total_window_size(self.selector_cfg,
+                                            new_max_components)
+        self.state = TrainState(
+            model=gmm_ops.repad(state.model, new_max_components),
+            meta=meta_ops.repad_meta(state.meta, new_max_components),
+            db=db_ops.repad_db(state.db, new_max_components, new_cap),
+            wstep=state.wstep, adapt=state.adapt,
+            num_updates=state.num_updates)
+
+    def _has_growth_headroom(self) -> bool:
+        cfg = self.vips_cfg
+        return (cfg is not None
+                and self.state.model.max_components < cfg.max_components)
+
+    def _grow_if_full(self) -> None:
+        """If VIPS has filled the padding below its ``max_components``, grow
+        it (with a warning) to ``min(max_components, round_up(max(2 Kmax,
+        Kmax + 8), 8))`` rather than let adds become no-ops.  Reads
+        ``num_active`` on the host."""
+        if not self._has_growth_headroom():
+            return
         cfg = self.vips_cfg
         kmax = self.state.model.max_components
-        if cfg is None or kmax >= cfg.max_components:
-            return
-        self._steps_to_capacity_check -= 1
-        if self._steps_to_capacity_check > 0:
-            return
-        self._steps_to_capacity_check = max(1, cfg.add_iters)
         if int(self.state.model.num_active) >= kmax:
-            raise NotImplementedError(
-                f"component capacity {kmax} is full and max_components="
-                f"{cfg.max_components}: growing the padding is not ported "
-                "yet; set tpu.max_components to preallocate")
+            new_kmax = min(cfg.max_components,
+                           (max(2 * kmax, kmax + 8) + 7) // 8 * 8)
+            warnings.warn(
+                f"component capacity {kmax} exhausted; repadding to "
+                f"{new_kmax} (max_components={cfg.max_components}). Set "
+                "tpu.max_components to preallocate.")
+            self.grow_capacity(new_kmax)
 
+    def _maybe_grow(self) -> None:
+        """The capacity check before every ``add_iters``-th step (iteration
+        counts 0, add_iters, 2 add_iters, ...): with adds spaced
+        ``add_iters`` apart, exactly one check falls between two adds.  The
+        schedule follows the iteration count, so a resumed run checks where
+        an unbroken one does."""
+        if self._has_growth_headroom() \
+                and self.state.num_updates % max(1, self.vips_cfg.add_iters) \
+                == 0:
+            self._grow_if_full()
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
     def train_iter(self, draws: Optional[StepDraws] = None) -> None:
-        """Advance one iteration, with ``draws`` or fresh generator draws."""
-        self._check_capacity()
+        """Advance one iteration, with ``draws`` or fresh generator draws
+        (made after any capacity growth, at the grown shapes)."""
+        self._maybe_grow()
         if draws is None:
             draws = self.draw(self.state.num_updates)
         self.state = self._full_step(self.state, draws)

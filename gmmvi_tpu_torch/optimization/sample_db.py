@@ -376,3 +376,43 @@ def get_random_samples(db: SampleDbState, perm: torch.Tensor
     perm = perm.long()
     return db.res_samples[perm], db.res_lnpdfs[perm], perm < filled
 
+
+def repad_db(db: SampleDbState, new_max_components: int, new_capacity: int
+             ) -> SampleDbState:
+    """Grow the distribution ring's component axis (identity factors in the
+    new slots) and the sample ring's capacity.  The newest ``min(written,
+    old capacity, new capacity)`` samples are laid out again so that each
+    keeps its position ``pos % capacity``: the window's contents, order and
+    validity are unchanged.  The reservoir is unchanged."""
+    kmax, d = db.max_components, db.dist_means.shape[-1]
+    s_old, s_new = db.capacity, new_capacity
+    k_extra = new_max_components - kmax
+    dev = db.samples.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    new = db
+    if k_extra > 0:
+        r = db.ring_iters
+        pad_chol = torch.eye(d, **f32).expand(r, k_extra, d, d)
+        new = new.replace(
+            dist_means=torch.cat([db.dist_means,
+                                  torch.zeros((r, k_extra, d), **f32)], 1),
+            dist_chols=torch.cat([db.dist_chols, pad_chol], 1),
+            dist_inv_chols=torch.cat([db.dist_inv_chols, pad_chol], 1))
+    if s_new > s_old:
+        written = int(db.write_pos)
+        n_keep = min(written, s_old)
+        pos = torch.arange(n_keep, device=dev) + (written - n_keep)
+        old_idx, new_idx = pos % s_old, pos % s_new
+
+        def relay(old_arr, fill=0):
+            arr = torch.full((s_new,) + tuple(old_arr.shape[1:]), fill,
+                             dtype=old_arr.dtype, device=dev)
+            arr[new_idx] = old_arr[old_idx]
+            return arr
+
+        new = new.replace(
+            samples=relay(db.samples), target_lnpdfs=relay(db.target_lnpdfs),
+            target_grads=relay(db.target_grads),
+            sample_iter=relay(db.sample_iter, fill=-1),
+            sample_comp=relay(db.sample_comp))
+    return new

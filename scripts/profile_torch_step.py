@@ -4,12 +4,14 @@
 Builds a main path as ``chip_smoke.py`` does (``--codename SAMTRON``, the
 flagship: the 20-D Student-T mixture, 45 components padded to 48, 200
 samples per component; or ``ZAMTRUX``, VIPS with sample reuse at the same
-widths; with ``--experiment stm300``, the codename on the 300-D Student-T
-mixture from ``get_default_config(codename, "stm300")``), runs warm-up
-steps, then traces ``--steps`` steps with ``torch.profiler``.  Writes the
-profiler's table (sorted by device time) to
-``<out-dir>/profile_torch_step_<codename>[_stm300].txt`` and prints one
-JSON line:
+widths; with ``--experiment stm300`` or ``gmm20``, the codename on that
+experiment from ``get_default_config(codename, experiment)``: the 300-D
+Student-T mixture, or the runner path's 20-D GMM, which starts from one
+component, so give it a longer ``--warmup``), runs warm-up steps, then
+traces ``--steps`` steps with ``torch.profiler``.  Writes the profiler's
+table (sorted by device time) to
+``<out-dir>/profile_torch_step_<codename>[_<experiment>].txt`` and prints
+one JSON line:
 wall ms per step, device-busy ms per step (the sum of kernel and copy
 times; one stream, so they do not overlap), the idle share, device
 operations (kernels and copies) and device-to-host copies per step, and
@@ -17,7 +19,7 @@ device ms per step for the port's kernels and for the largest other groups.
 
 Run from the repository root on a machine with the card:
 ``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]
-[--experiment stm300]``.
+[--experiment stm300 | gmm20 --warmup 600]``.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def main() -> int:
     ap.add_argument("--codename", default="SAMTRON",
                     choices=("SAMTRON", "ZAMTRUX"))
     ap.add_argument("--experiment", default="flagship",
-                    choices=("flagship", "stm300"))
+                    choices=("flagship", "stm300", "gmm20"))
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out-dir", default=os.path.join("build", "profile"),
@@ -60,8 +62,8 @@ def main() -> int:
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     dev = resolve_device("cuda")
-    if args.experiment == "stm300":
-        cfg = get_default_config(args.codename, "stm300")
+    if args.experiment != "flagship":
+        cfg = get_default_config(args.codename, args.experiment)
         target, model, meta = init_experiment(cfg, device=dev)
     else:
         target = make_target(num_dimensions=D, harder_setting=False, seed=0,
@@ -85,7 +87,7 @@ def main() -> int:
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=60)
     os.makedirs(args.out_dir, exist_ok=True)
-    suffix = "_stm300" if args.experiment == "stm300" else ""
+    suffix = "" if args.experiment == "flagship" else f"_{args.experiment}"
     with open(os.path.join(args.out_dir,
                            f"profile_torch_step_{args.codename}{suffix}.txt"),
               "w") as fh:
@@ -99,7 +101,7 @@ def main() -> int:
 
     groups = {"density_kernel": "B1/B2 density_kernel",
               "tr_kl_kernel": "B3 tr_kl_kernel",
-              "background_kernel": "B4 background_kernel",
+              "background_kernel": "B4/B9 background_kernel",
               "more_gram_kernel": "B8 more_gram_kernel",
               "large_comp_kernel": "B5 large_comp_kernel",
               "large_lse_kernel": "B5 large_lse_kernel",
@@ -126,6 +128,9 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "codename": args.codename,
         "experiment": args.experiment,
+        "warmup": args.warmup,
+        "num_active": int(gmmvi.model.num_active),
+        "max_components": gmmvi.model.max_components,
         "steps": steps,
         "wall_ms_per_step": wall_s / steps * 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

@@ -7,7 +7,7 @@ component) through ``init_experiment`` and ``GMMVI.build_from_config``,
 runs ``--iters`` ``train_iter()`` steps and prints one JSON line after
 step 1 and every 10 steps: the ELBO and the mean target
 log-density of 2,000 draws from the mixture, as the JAX package's runner
-estimates them (``chip_smoke.mc_elbo``), their difference (the entropy
+estimates them (``runner.sample_elbo``), their difference (the entropy
 estimate), the newest window's mean target log-density and the component
 count.  With ``--plain-iters N`` it then runs N steps again from the same
 start with kernels B5-B7 replaced by their plain PyTorch versions, so the
@@ -26,7 +26,7 @@ import sys
 
 
 def trace(tag: str, iters: int) -> None:
-    from chip_smoke import mc_elbo, newest_window_mean_lnpdf
+    from chip_smoke import elbo, newest_window_mean_lnpdf
     from gmmvi_tpu_torch.configs import get_default_config
     from gmmvi_tpu_torch.experiments.setup import init_experiment
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
@@ -37,11 +37,11 @@ def trace(tag: str, iters: int) -> None:
     for step in range(1, iters + 1):
         gmmvi.train_iter()
         if step == 1 or step % 10 == 0:
-            elbo, density = mc_elbo(gmmvi.state.model, target)
+            value, density = elbo(gmmvi.state.model, target)
             print(json.dumps({
-                "run": tag, "step": step, "elbo": elbo,
+                "run": tag, "step": step, "elbo": value,
                 "draws_mean_target_lnpdf": density,
-                "entropy": elbo - density,
+                "entropy": value - density,
                 "window_mean_target_lnpdf":
                     newest_window_mean_lnpdf(gmmvi.state.db),
                 "num_active": int(gmmvi.state.model.num_active)}),

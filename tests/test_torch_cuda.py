@@ -115,6 +115,72 @@ def test_background_kernel_matches_plain(dev, u, d, n, n_masked):
     torch.testing.assert_close(got[fin], want[fin], atol=2e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("k,d,n,n_masked", [
+    (24, 20, 2000, 0), (48, 20, 2000, 24), (96, 20, 16384, 40),
+    (5, 3, 50, 5), (7, 33, 129, 0), (3, 128, 64, 1), (1, 1, 31, 0),
+    (4, 136, 300, 1)])
+def test_mixture_logpdf_kernel_matches_plain(dev, k, d, n, n_masked):
+    """B9 against its plain version at rtol / atol 1e-4 (the Pallas
+    kernel's bar), at the runner path's shapes (2,000 evaluation draws,
+    16,384 add candidates) and others; -inf in the same places (every slot
+    masked).  Above D = 128 it takes B5 and counts there."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import mixture_logpdf as mops
+
+    args = [t.to(dev) for t in _mixture(k, d, n, n_masked, seed=k + d)]
+    before = dict(cuda.LAUNCHES)
+    got = mops.mixture_logpdf(*args)
+    want = mops.mixture_logpdf_plain(*args)
+    torch.cuda.synchronize()
+    name = "mixture_logpdf" if d <= 128 else "densities_large"
+    assert cuda.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.isneginf(want).all() == (n_masked == k)
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=1e-4, rtol=1e-4)
+
+
+def test_runner_on_card_resumes_exactly(dev, tmp_path):
+    """The runner on gmm20 at a small size on the card, outgrowing 4 slots:
+    saved after 18 iterations and loaded into a fresh runner, 8 more
+    iterations in both give the same state to the bit; B9 ran on the path
+    (the evaluations and the adds)."""
+    from gmmvi_tpu_torch import GmmviRunner, state_to_numpy
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
+    from gmmvi_tpu_torch.ops import cuda
+
+    cfg = update_config(get_default_config("SAMTRON", "gmm20"), {
+        "environment_config": {"num_dimensions": 5},
+        "sample_selector_config": {"desired_samples_per_component": 24},
+        "num_component_adapter_config": {"del_iters": 8, "add_iters": 5,
+                                         "num_database_samples": 256},
+        "gmmvi_runner_config": {"log_metrics_interval": 10},
+        "tpu": {"max_components": 4}})
+
+    def runner():
+        r = GmmviRunner.build_from_config(update_config(cfg, {}), device=dev)
+        r.target_distribution.make_plots = False
+        return r
+
+    a = runner()
+    cuda.reset_launch_counts()
+    for n in range(18):
+        a.iterate_and_log(n)
+    # two evaluations (model and target, 2,000 draws each), three adds
+    assert cuda.LAUNCHES["mixture_logpdf"] == 2 * 2 + 3
+    assert a.gmmvi.state.model.max_components == 16
+    path = str(tmp_path / "ck.npz")
+    a.save_checkpoint(path)
+    b = runner()
+    b.load_checkpoint(path)
+    for n in range(18, 26):
+        a.iterate_and_log(n)
+        b.iterate_and_log(n)
+    sa, sb = state_to_numpy(a.gmmvi.state), state_to_numpy(b.gmmvi.state)
+    for name in sa:
+        np.testing.assert_array_equal(sa[name], sb[name], err_msg=name)
+
+
 @pytest.mark.parametrize("k,d,n", [(3, 2, 1000), (5, 7, 613),
                                    (48, 20, 28801), (2, 45, 517)])
 def test_more_grams_kernel_matches_plain(dev, k, d, n):
@@ -235,6 +301,7 @@ def test_main_path_on_card_matches_cpu(dev, codename, dims):
     cpu, card = runs
     assert launches["density_pack"] == 5
     assert launches["tr_kl"] >= 5
+    assert launches["mixture_logpdf"] == 1        # the add's candidates
     if codename == "ZAMTRUX":
         assert launches["densities"] == 10          # ESS pass + weights
         assert launches["background_logpdf"] == 10  # propose + finalize
@@ -535,7 +602,10 @@ def test_large_d_path_on_card_matches_cpu(dev):
         runs.append(state_to_numpy(g.state))
         launches = dict(cuda.LAUNCHES)
     cpu, card = runs
-    assert launches["densities_large"] == 5 * 5   # pack, ESS, weights, 2 bg
+    # pack, ESS, weights and 2 backgrounds a step; the add's candidates
+    # (B9's mixture log-density, which takes B5 above D = 128)
+    assert launches["densities_large"] == 5 * 5 + 1
+    assert launches["mixture_logpdf"] == 0
     assert launches["density_grads_large"] == 5
     assert launches["stein_smom"] == 5
     for name in ("density_pack", "densities", "tr_kl", "background_logpdf",

@@ -34,7 +34,10 @@ def test_port_imports_with_jax_unavailable():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['gmmvi_tpu'] = None; "
             "import gmmvi_tpu_torch, gmmvi_tpu_torch.experiments.setup, "
-            "gmmvi_tpu_torch.optimization.gmmvi, gmmvi_tpu_torch.ops.cuda; "
+            "gmmvi_tpu_torch.optimization.gmmvi, gmmvi_tpu_torch.ops.cuda, "
+            "gmmvi_tpu_torch.runner, gmmvi_tpu_torch.experiments.targets.gmm, "
+            "gmmvi_tpu_torch.experiments.evaluation.mmd, "
+            "gmmvi_tpu_torch.experiments.evaluation.plotting; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -88,7 +91,7 @@ def test_stm20_defaults_equal_the_yaml_file():
         jcfg.get_default_config("SAMTRON", "stm20")
     assert tcfg.ALL_CODENAME_LETTERS == jcfg.ALL_CODENAME_LETTERS
     with pytest.raises(NotImplementedError, match="not ported"):
-        tcfg.get_default_experiment_config("gmm20")
+        tcfg.get_default_experiment_config("breast_cancer")
 
 
 def test_stm300_defaults_equal_the_yaml_file():
@@ -104,6 +107,23 @@ def test_stm300_defaults_equal_the_yaml_file():
     assert tcfg.get_default_config("SAMTRON", "stm300") == \
         jcfg.get_default_config("SAMTRON", "stm300")
     tcfg.validate_config(tcfg.get_default_config("SAMTRON", "stm300"))
+
+
+@pytest.mark.parametrize("experiment", ["gmm20", "gmm100"])
+def test_gmm_defaults_equal_the_yaml_file(experiment):
+    """The GMM experiments the runner path takes: their defaults equal
+    their YAML files, and SAMTRON on them is configured as in the JAX
+    package."""
+    yaml = pytest.importorskip("yaml")
+    import gmmvi_tpu.configs as jcfg
+
+    with open(os.path.join(REPO, "gmmvi_tpu", "configs",
+                           "experiment_configs", f"{experiment}.yml")) as fh:
+        assert tcfg.get_default_experiment_config(experiment) == \
+            yaml.safe_load(fh)
+    assert tcfg.get_default_config("SAMTRON", experiment) == \
+        jcfg.get_default_config("SAMTRON", experiment)
+    tcfg.validate_config(tcfg.get_default_config("SAMTRON", experiment))
 
 
 def _bad_configs():

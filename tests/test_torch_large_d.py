@@ -11,8 +11,6 @@ matrix products (``MATMUL_MODE = "f32"``, the mode its own tests hold at
 the streamed Stein moments and, above D = 64, the XLA bracket with the
 whitened per-trip KL.
 """
-import contextlib
-import fcntl
 import math
 import os
 import pickle
@@ -23,7 +21,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import (assert_states_match, build_pair, jax_state_leaves,
-                          jax_step_draws, mc_elbo)
+                          jax_step_draws, mc_elbo, xdist_lock)
 
 import gmmvi_tpu_torch
 from gmmvi_tpu_torch.models import gmm as tgmm
@@ -46,28 +44,11 @@ def _t(x, dtype=None):
     return torch.as_tensor(np.array(x), dtype=dtype)
 
 
-@contextlib.contextmanager
-def _xdist_lock(tmp_path_factory, name: str):
-    """Hold an exclusive lock shared by this test run's pytest-xdist
-    workers, yielding the run's shared path prefix; without xdist, no lock
-    and ``None``."""
-    run_id = os.environ.get("PYTEST_XDIST_TESTRUNUID")
-    if run_id is None:
-        yield None
-        return
-    base = tmp_path_factory.getbasetemp().parent / f"large_d_{run_id}"
-    with open(f"{base}.{name}.lock", "w") as fh:
-        fcntl.flock(fh, fcntl.LOCK_EX)
-        yield base
-
-
 @pytest.fixture(autouse=True)
 def _one_test_at_a_time(tmp_path_factory):
-    """This file's tests run one at a time across pytest-xdist workers.
-    Each keeps several cores busy with torch's and XLA's threads, and a few
-    at once starve the JAX tests that rendezvous over an 8-device CPU mesh
-    (tests/test_sharded_db.py aborted under that load)."""
-    with _xdist_lock(tmp_path_factory, "tests"):
+    """This file's tests run one at a time across pytest-xdist workers
+    (``torch_parity.xdist_lock``)."""
+    with xdist_lock(tmp_path_factory, "tests"):
         yield
 
 
@@ -453,7 +434,7 @@ def reuse_run(tmp_path_factory):
     from gmmvi_tpu.utils.checkpoint import load_state, save_state
 
     with pytest.MonkeyPatch.context() as mp, \
-            _xdist_lock(tmp_path_factory, "tests") as base:
+            xdist_lock(tmp_path_factory, "tests") as base:
         mp.setenv("GMMVI_FUSED_DENSITY", "interpret")
         mp.setenv("GMMVI_FUSED_STEIN", "interpret")
         mp.setattr(pallas_density, "MATMUL_MODE", "f32")
@@ -461,16 +442,16 @@ def reuse_run(tmp_path_factory):
                             k0=K0, add_iters=ADD_ITERS)
         if base is None:
             leaves, draws = _jax_reuse_run(jg)
-        elif os.path.exists(f"{base}.pkl"):
-            with open(f"{base}.pkl", "rb") as fh:
+        elif os.path.exists(f"{base}.large_d.pkl"):
+            with open(f"{base}.large_d.pkl", "rb") as fh:
                 leaves, draws = pickle.load(fh)
-            jg.state = load_state(f"{base}.npz", jg.state)
+            jg.state = load_state(f"{base}.large_d.npz", jg.state)
         else:
             leaves, draws = _jax_reuse_run(jg)
-            save_state(f"{base}.npz", jg.state)
-            with open(f"{base}.pkl.tmp", "wb") as fh:
+            save_state(f"{base}.large_d.npz", jg.state)
+            with open(f"{base}.large_d.pkl.tmp", "wb") as fh:
                 pickle.dump((leaves, draws), fh)
-            os.replace(f"{base}.pkl.tmp", f"{base}.pkl")
+            os.replace(f"{base}.large_d.pkl.tmp", f"{base}.large_d.pkl")
     return jg, tg, leaves, draws
 
 

@@ -3,6 +3,10 @@ package: small flagship-shaped configs, JAX's random draws for one training
 step, and leaf-by-leaf state comparison.  Not a test module itself."""
 from __future__ import annotations
 
+import contextlib
+import fcntl
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -85,19 +89,23 @@ def build_pair(dims=DIMS, codename="SAMTRON", ratio=None, **kw):
     return jg, tg
 
 
-def jax_step_draws(jax_gmmvi):
+def jax_step_draws(jax_gmmvi, key=None, kmax=None):
     """The random numbers JAX's next ``_full_step`` consumes, recomputed
     from its key with the same splits (gmmvi.py ``_propose_phase`` and
     ``_update_phase``, sample_db.add_samples, add_new_component), as a
-    StepDraws for the port."""
+    StepDraws for the port.  ``key`` and ``kmax`` (the state's key and
+    padded capacity by default) let a caller recompute a step's draws after
+    the step, at the capacity it grew to first."""
     from gmmvi_tpu_torch import StepDraws
 
     st = jax_gmmvi.state
-    kmax, d = st.model.max_components, st.model.num_dimensions
+    key = st.key if key is None else key
+    kmax = st.model.max_components if kmax is None else kmax
+    d = st.model.num_dimensions
     n_des = jax_gmmvi.selector_cfg.desired_samples_per_component
     b, c = kmax * n_des, st.db.reservoir_capacity
     n_db = jax_gmmvi.vips_cfg.num_database_samples
-    key1, k_sel = jax.random.split(st.key)
+    key1, k_sel = jax.random.split(key)
     eps = jax.random.normal(k_sel, (kmax, n_des, d), jnp.float32)
     _, k_db, k_adapt = jax.random.split(key1, 3)
     slot_key, acc_key = jax.random.split(k_db)
@@ -113,6 +121,25 @@ def jax_step_draws(jax_gmmvi):
     return StepDraws(eps=t(eps), rand_slots=t(rand_slots, torch.int32),
                      accept_u=t(accept_u), db_perm=t(perm, torch.int64),
                      add_a=t(a))
+
+
+@contextlib.contextmanager
+def xdist_lock(tmp_path_factory, name: str):
+    """Hold an exclusive lock shared by this test run's pytest-xdist
+    workers, yielding the run's shared path prefix; without xdist, no lock
+    and ``None``.  The port's heavy test files run their tests one at a
+    time under the lock ``"tests"``: each keeps several cores busy with
+    torch's and XLA's threads, and a few at once starved the JAX tests that
+    rendezvous over an 8-device CPU mesh (tests/test_sharded_db.py aborted
+    under that load)."""
+    run_id = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run_id is None:
+        yield None
+        return
+    base = tmp_path_factory.getbasetemp().parent / f"torch_{run_id}"
+    with open(f"{base}.{name}.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        yield base
 
 
 def jax_state_leaves(state) -> dict:
