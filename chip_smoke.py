@@ -7,13 +7,19 @@ printing one JSON line:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: every CUDA kernel of the main paths, compiled from
    ``gmmvi_tpu_torch/csrc`` with ``nvcc`` (in parallel), with the seconds;
+   then sass: ``cuobjdump --dump-sass`` of the libraries, the count of
+   ``HGMMA`` (wgmma) instructions in B5's and B7's tensor-core kernels,
+   which fails the run where it is 0;
 3. kernels: each kernel at its main path's shapes against its plain
    PyTorch version on the card (max error against the stated tolerance),
    timed with CUDA events: ``ms`` and ``plain_ms`` are device time per call
    (median of 21 batches of 20 back-to-back calls queued behind a spin
    kernel, so the host's time is hidden), ``call_ms`` one call on an idle
    card with the host's part included (median of 50); with its least
-   possible time on an H100 (``bound_ms``);
+   possible time on an H100 (``bound_ms``: the fp32 FMAs at 67 TFLOP/s or
+   the bytes at 3.35 TB/s; for B5 and B7 also ``bound_tc_ms``: the same
+   FMAs as three TF32 products each at the 495 TFLOP/s tensor-core peak,
+   or the bytes);
 4. main paths, each through its entry points, with the launch counters
    set to 0 just before it and read just after, and checks on what comes
    out.  Through ``GMMVI.build_from_config`` and ``train_iter`` for 130
@@ -37,8 +43,9 @@ printing one JSON line:
    counts intact and a resume from a checkpoint equal to the bit;
 5. every kernel once more, on the inputs of its last launch in the
    ZAMTRUX run (B2 at both of its window sizes; the data decides how much
-   work B4 and B8 do), in the stm300 run (B5 at each of its four call
-   sizes) and in the runner run (B9 at its two call sizes), against its
+   work B4 and B8 do), in the stm300 run (B5 at each of its six call
+   sizes, B9's two among them) and in the runner run (B9 at its two call
+   sizes), against its
    plain version at the bar of phase 3, timed as there.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
@@ -60,7 +67,12 @@ from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+# the kernels on the tensor cores (3xTF32 wgmma): source, kernel function
+TENSOR_CORE_KERNELS = {"densities_large": ("density_large.cu",
+                                           "large_comp_kernel"),
+                       "stein_smom": ("stein.cu", "stein_mma_kernel")}
 
 MAIN_ITERS = 130
 D, KMAX, K0, N_DES = 20, 48, 45, 200
@@ -156,6 +168,36 @@ def bound_ms(flops: float, nbytes: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def bound_tc_ms(fmas: float) -> float:
+    """The least time of ``fmas`` float32 multiply-adds taken as three TF32
+    tensor-core products each (3xTF32), at the dense TF32 peak."""
+    return 3 * 2 * fmas / PEAK_TF32_FLOPS * 1e3
+
+
+def sass_phase() -> dict:
+    """``cuobjdump --dump-sass`` of the built libraries: the count of
+    ``HGMMA`` (the SASS form of wgmma) in each tensor-core kernel's
+    function; fails where there is none."""
+    from gmmvi_tpu_torch.ops import cuda
+
+    tool = Path(cuda._nvcc()).parent / "cuobjdump"
+    counts = {}
+    for name, (source, function) in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run(
+            [str(tool), "--dump-sass", str(cuda._lib_path(source))],
+            check=True, capture_output=True, text=True, timeout=300).stdout
+        funcs = [f for f in sass.split("Function : ")[1:]
+                 if function in f.splitlines()[0]]
+        counts[name] = sum(line.count("HGMMA") for f in funcs
+                           for line in f.splitlines())
+    out = {"phase": "sass", "hgmma": counts}
+    emit(out)
+    missing = [n for n, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"no HGMMA in the SASS of {missing}")
+    return out
 
 
 def max_err(got, want, atol: float, rtol: float):
@@ -600,7 +642,9 @@ def measure_large_density(name, args) -> dict:
                 ok=ok and all(e[1] for e in errs), rows=k, computed_rows=rows,
                 samples=n, ms=device_ms(lambda: fn(*args)),
                 plain_ms=device_ms(lambda: plain(*args), reps=11, batch=5),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by,
+                bound_tc_ms=max(bound_tc_ms(rows * n * tri),
+                                nbytes / PEAK_BYTES_PER_S * 1e3))
 
 
 def measure_large_grads(args) -> dict:
@@ -663,7 +707,10 @@ def measure_stein(args) -> dict:
                 library_ms=device_ms(
                     lambda: torch.einsum("kn,nd,ne->kde", *args),
                     reps=11, batch=5),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by,
+                bound_tc_ms=max(bound_tc_ms(pairs * d * d),
+                                4 * (k * n + 2 * n * d + k * d * d)
+                                / PEAK_BYTES_PER_S * 1e3))
 
 
 def large_kernel_rows(dev):
@@ -1424,6 +1471,7 @@ def main() -> int:
     built = cuda.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": built})
+    sass_phase()
 
     rows = kernel_phase(dev)
     flagship = ("density_pack", "densities", "tr_kl")
@@ -1447,8 +1495,9 @@ def main() -> int:
                 "gmm20" if r["name"] == "mixture_logpdf" else "ZAMTRUX")
         r["launches"] = by_path[path][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_tc_ms")
+    emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-// One 64 x 64 output tile of a plain fp32 SIMT GEMM, the engine shared by
-// density_large.cu (B5, B6) and stein.cu (B7).
+// One 64 x 64 output tile of a plain fp32 SIMT GEMM: the engine of B6
+// (density_large.cu `large_grad_kernel`), its only user since B5 and B7
+// moved to the tensor cores (tf32x3.cuh).
 //
 // 64 threads own the tile, each an 8 x 8 micro-tile made of four 4 x 4
 // quadrants 32 rows and 32 columns apart: thread (ty, tx) = (tid / 8,

@@ -38,7 +38,9 @@ class GMM_LNPDF(LNPDF):
                                        device=resolve_device(device))
 
     def _x(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32,
+        """Samples in the parameters' float type (float32 unless a caller
+        cast them) on their device."""
+        return torch.as_tensor(x, dtype=self._state.means.dtype,
                                device=self._state.device).contiguous()
 
     def log_density(self, x):

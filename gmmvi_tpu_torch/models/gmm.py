@@ -81,15 +81,17 @@ def safe_chol_pad(chols: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def create_gmm_state(weights, means, covs, max_components: Optional[int] = None,
-                     diagonal: bool = False, device="cuda") -> GmmState:
+                     diagonal: bool = False, device="cuda",
+                     dtype=torch.float32) -> GmmState:
     """Padded :class:`GmmState` from K initial components (numpy arrays or
-    tensors); weights are normalized and covariances Cholesky-factored."""
+    tensors) in ``dtype``; weights are normalized and covariances
+    Cholesky-factored."""
     _full_cov_only(diagonal)
     device = resolve_device(device)
-    f32 = dict(dtype=torch.float32, device=device)
-    weights = torch.as_tensor(weights, **f32)
-    means = torch.as_tensor(means, **f32)
-    covs = torch.as_tensor(covs, **f32)
+    opts = dict(dtype=dtype, device=device)
+    weights = torch.as_tensor(weights, **opts)
+    means = torch.as_tensor(means, **opts)
+    covs = torch.as_tensor(covs, **opts)
     k, d = means.shape
     kmax = max_components if max_components is not None else k
     if kmax < k:
@@ -97,11 +99,12 @@ def create_gmm_state(weights, means, covs, max_components: Optional[int] = None,
     log_w = torch.log(weights)
     log_w = log_w - torch.logsumexp(log_w, 0)
     chols = torch.linalg.cholesky(covs)
-    pad_chol = torch.eye(d, **f32).expand(kmax - k, d, d)
+    pad_chol = torch.eye(d, **opts).expand(kmax - k, d, d)
     chols_p = torch.cat([chols, pad_chol])
     return GmmState(
-        log_weights=torch.cat([log_w, torch.full((kmax - k,), NEG_INF, **f32)]),
-        means=torch.cat([means, torch.zeros((kmax - k, d), **f32)]),
+        log_weights=torch.cat([log_w,
+                               torch.full((kmax - k,), NEG_INF, **opts)]),
+        means=torch.cat([means, torch.zeros((kmax - k, d), **opts)]),
         chols=chols_p,
         inv_chols=tril_inverse(chols_p),
         num_active=torch.tensor(k, dtype=torch.int32, device=device),

@@ -38,7 +38,8 @@ LAUNCHES: Dict[str, int] = {"density_pack": 0, "densities": 0, "tr_kl": 0,
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
-# C signatures of the exported launchers (all return cudaError_t as int)
+# C signatures of the exported launchers (all return cudaError_t as int,
+# but the ``*_workspace`` functions: bytes of scratch, as size_t)
 _SIGNATURES = {
     "density.cu": {
         # means, inv_chols, logw, logdets, x, comp, model, grads, K, N, D,
@@ -61,15 +62,19 @@ _SIGNATURES = {
         "gmmvi_more_grams": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
     },
     "density_large.cu": {
-        # means, inv_chols, logw, logdets, x, comp, model, K, N, D,
+        # K, N, D
+        "gmmvi_densities_large_workspace": [_c_int] * 3,
+        # means, inv_chols, logw, logdets, x, comp, model, ws, K, N, D,
         # skip_masked, stream
-        "gmmvi_densities_large": [_c_ptr] * 7 + [_c_int] * 4 + [_c_ptr],
+        "gmmvi_densities_large": [_c_ptr] * 8 + [_c_int] * 4 + [_c_ptr],
         # lam, means, logw, comp, model, x, grads, K, N, D, stream
         "gmmvi_density_grads_large": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
     },
     "stein.cu": {
-        # w, g, xc, out, K, N, D, stream
-        "gmmvi_stein_smom": [_c_ptr] * 4 + [_c_int] * 3 + [_c_ptr],
+        # K, N, D
+        "gmmvi_stein_smom_workspace": [_c_int] * 3,
+        # w, g, xc, out, ws, K, N, D, stream
+        "gmmvi_stein_smom": [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr],
     },
 }
 
@@ -148,26 +153,42 @@ def library(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(source)))
             for fn, argtypes in _SIGNATURES[source].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = (
+                    ctypes.c_size_t if fn.endswith("_workspace")
+                    else ctypes.c_int)
             _libs[source] = lib
     return lib
 
 
 def check_tensors(tensors: Dict[str, tuple], device: torch.device) -> None:
-    """Each ``name: (tensor, shape)`` is float32, of that shape, on
-    ``device`` and row-major: a kernel wrapper raises rather than copy."""
+    """Each ``name: (tensor, shape)`` is float32 (or, on the CPU, all of
+    them float64: the plain versions then run in float64), of that shape,
+    on ``device`` and row-major: a kernel wrapper raises rather than
+    copy."""
+    all64 = device.type == "cpu" and all(
+        t.dtype == torch.float64 for t, _ in tensors.values())
+    want = torch.float64 if all64 else torch.float32
     for name, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
+        if t.dtype != want:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {want}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+
+
+def workspace(lib: ctypes.CDLL, fn: str, device: torch.device,
+              *sizes: int) -> torch.Tensor:
+    """Scratch for one launch of ``fn``: the bytes ``fn + "_workspace"``
+    asks for at ``sizes``, from PyTorch's allocator (256-byte aligned)."""
+    nbytes = getattr(lib, fn + "_workspace")(*sizes)
+    return torch.empty((max(int(nbytes), 1),), dtype=torch.uint8,
+                       device=device)
 
 
 def stream_ptr(device: torch.device) -> int:

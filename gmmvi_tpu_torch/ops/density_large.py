@@ -94,9 +94,12 @@ def _densities(means, inv_chols, log_weights, log_dets, samples,
     opts = dict(dtype=torch.float32, device=samples.device)
     comp = torch.empty((k, n), **opts)
     model = torch.empty((n,), **opts)
-    rc = cuda.library("density_large.cu").gmmvi_densities_large(
+    lib = cuda.library("density_large.cu")
+    ws = cuda.workspace(lib, "gmmvi_densities_large", samples.device, k, n,
+                        d)
+    rc = lib.gmmvi_densities_large(
         *[t.data_ptr() for t in (means, inv_chols, log_weights, log_dets,
-                                 samples, comp, model)],
+                                 samples, comp, model, ws)],
         k, n, d, int(skip_masked), cuda.stream_ptr(samples.device))
     cuda.check(rc, "densities_large")
     cuda.LAUNCHES["densities_large"] += 1

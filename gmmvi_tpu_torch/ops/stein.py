@@ -57,9 +57,11 @@ def stein_smom(w, g, xc) -> torch.Tensor:
     if g.device.type == "cpu":
         return stein_smom_plain(w, g, xc)
     out = torch.empty((k, d, d), dtype=torch.float32, device=g.device)
-    rc = cuda.library("stein.cu").gmmvi_stein_smom(
-        w.data_ptr(), g.data_ptr(), xc.data_ptr(), out.data_ptr(), k, n, d,
-        cuda.stream_ptr(g.device))
+    lib = cuda.library("stein.cu")
+    ws = cuda.workspace(lib, "gmmvi_stein_smom", g.device, k, n, d)
+    rc = lib.gmmvi_stein_smom(
+        w.data_ptr(), g.data_ptr(), xc.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), k, n, d, cuda.stream_ptr(g.device))
     cuda.check(rc, "stein_smom")
     cuda.LAUNCHES["stein_smom"] += 1
     return out

@@ -294,7 +294,10 @@ def get_newest_samples(db: SampleDbState, window: int,
                                                                 min=1.0)),
         NEG_INF)
     means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
-    bg = background_logpdf(means_u, inv_u, log_weights, log_dets_u, samples)
+    # (the counts are float32, as in the JAX package; a float64 state
+    # takes their logarithms exactly)
+    bg = background_logpdf(means_u, inv_u, log_weights.to(means_u.dtype),
+                           log_dets_u, samples)
     return SampleWindow(
         samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
         target_grads=grads, background_log_pdfs=bg, valid=valid,
@@ -350,7 +353,8 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
         means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
         # all U rows: the kernel skips the unselected ones, so the JAX
         # package's two-size ladder (a cond on the live count) is not needed
-        bg_old = background_logpdf(means_u, inv_u, log_w_old, log_dets_u,
+        bg_old = background_logpdf(means_u, inv_u,
+                                   log_w_old.to(means_u.dtype), log_dets_u,
                                    samples)
         bg_cur = masked_logsumexp(
             pack.component_log_densities + log_w_cur[:, None],

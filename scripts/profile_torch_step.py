@@ -104,9 +104,13 @@ def main() -> int:
               "background_kernel": "B4/B9 background_kernel",
               "more_gram_kernel": "B8 more_gram_kernel",
               "large_comp_kernel": "B5 large_comp_kernel",
+              "large_split_kernel": "B5 pre-passes",
+              "large_xtiles_kernel": "B5 pre-passes",
               "large_lse_kernel": "B5 large_lse_kernel",
               "large_grad_kernel": "B6 large_grad_kernel",
-              "stein_smom_kernel": "B7 stein_smom_kernel"}
+              "stein_mma_kernel": "B7 stein_mma_kernel",
+              "stein_tiles_kernel": "B7 pre-passes",
+              "stein_weights_kernel": "B7 pre-passes"}
     per_group: dict = {}
     busy_us = 0.0
     device_ops = copies_to_host = 0

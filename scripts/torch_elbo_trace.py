@@ -5,17 +5,20 @@ Builds ``get_default_config("SAMTRON", "stm300")`` (the 300-D Student-T
 mixture, 20 components padded to 40, 100 fresh and 200 reused samples per
 component) through ``init_experiment`` and ``GMMVI.build_from_config``,
 runs ``--iters`` ``train_iter()`` steps and prints one JSON line after
-step 1 and every 10 steps: the ELBO and the mean target
-log-density of 2,000 draws from the mixture, as the JAX package's runner
-estimates them (``runner.sample_elbo``), their difference (the entropy
-estimate), the newest window's mean target log-density and the component
-count.  With ``--plain-iters N`` it then runs N steps again from the same
-start with kernels B5-B7 replaced by their plain PyTorch versions, so the
-two traces can be compared line by line.  Last, the card's name and power
-limit as ``nvidia-smi`` gives them.
+step 1 and every 10 steps: the ELBO and the mean target log-density of
+2,000 draws from the mixture, as the JAX package's runner estimates them
+(``runner.sample_elbo``), their difference (the entropy estimate), the
+newest window's mean target log-density, the component count and the
+fevals so far (fresh samples written).  With ``--plain-iters N`` it then
+runs N steps again from the same start with the kernels named in
+``--plain-kernels`` (B5, B6 and B7 by default) replaced by their plain
+PyTorch versions, so the two traces can be compared line by line: runs
+of equally accurate float32 arithmetic that part only in the last bits.
+Last, the card's name and power limit as ``nvidia-smi`` gives them.
 
 Run from the repository root on a machine with the card:
-``python3 scripts/torch_elbo_trace.py [--iters 130] [--plain-iters 40]``.
+``python3 scripts/torch_elbo_trace.py [--iters 130] [--plain-iters 40]
+[--plain-kernels B5,B7]``.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ def trace(tag: str, iters: int) -> None:
                 "entropy": value - density,
                 "window_mean_target_lnpdf":
                     newest_window_mean_lnpdf(gmmvi.state.db),
-                "num_active": int(gmmvi.state.model.num_active)}),
+                "num_active": int(gmmvi.state.model.num_active),
+                "fevals": int(gmmvi.state.db.num_samples_written)}),
                 flush=True)
 
 
@@ -52,6 +56,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=130)
     ap.add_argument("--plain-iters", type=int, default=0)
+    ap.add_argument("--plain-kernels", default="B5,B6,B7")
     args = ap.parse_args()
 
     import torch
@@ -63,15 +68,21 @@ def main() -> int:
         os.path.abspath(__file__))))
     from gmmvi_tpu_torch.ops import density_large, stein
 
-    trace("kernels", args.iters)
+    if args.iters:
+        trace("kernels", args.iters)
     if args.plain_iters:
-        density_large.densities_large = density_large.densities_large_plain
-        density_large.mixture_logpdf_large = \
-            density_large.mixture_logpdf_large_plain
-        density_large.density_pack_large = \
-            density_large.density_pack_large_plain
-        stein.stein_smom = stein.stein_smom_plain
-        trace("plain", args.plain_iters)
+        plain = set(args.plain_kernels.split(","))
+        if "B5" in plain:
+            density_large.densities_large = \
+                density_large.densities_large_plain
+            density_large.mixture_logpdf_large = \
+                density_large.mixture_logpdf_large_plain
+        if "B6" in plain:
+            density_large.density_grads_large = \
+                density_large.density_grads_large_plain
+        if "B7" in plain:
+            stein.stein_smom = stein.stein_smom_plain
+        trace("plain " + "+".join(sorted(plain)), args.plain_iters)
     from chip_smoke import nvidia_smi
 
     print(nvidia_smi(), flush=True)

@@ -550,6 +550,89 @@ def test_stein_smom_kernel_matches_plain(dev, k, d, n):
     assert (err <= 1e-5 * scale).all(), (err / scale).tolist()
 
 
+EDGE_DIMS = [65, 72, 136, 300, 301, 512]
+
+
+@pytest.mark.parametrize("d", EDGE_DIMS)
+def test_stein_smom_tf32x3_edge_shapes(dev, d):
+    """B7's 3xTF32 tiles (64 x 128 of the D x D output, slabs of 32
+    samples) at D on either side of a tile's edge and N = 1,001 (a
+    multiple of no tile or slab): within 1e-5 of each component's largest
+    entry of the plain version; a component without weight gives exact
+    zeros; runs of 40 zero-weight samples (whole dead slabs) skipped."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import stein
+
+    k, n = 5, 1001
+    g = torch.Generator().manual_seed(d)
+    w = torch.softmax(torch.randn(k, n, generator=g) * 3, dim=0)
+    w[:, (torch.arange(n) // 40) % 3 == 1] = 0.0
+    w[2] = 0.0
+    gr = torch.randn(n, d, generator=g) * 10
+    xc = torch.randn(n, d, generator=g) * 3
+    args = [t.to(dev).contiguous() for t in (w, gr, xc)]
+    before = cuda.LAUNCHES["stein_smom"]
+    got = stein.stein_smom(*args)
+    want = stein.stein_smom_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["stein_smom"] == before + 1
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    live = torch.arange(k, device=dev) != 2
+    scale = want[live].abs().reshape(k - 1, -1).amax(1)
+    err = (got[live] - want[live]).abs().reshape(k - 1, -1).amax(1)
+    assert (err <= 1e-5 * scale).all(), (err / scale).tolist()
+
+
+@pytest.mark.parametrize("d", EDGE_DIMS)
+def test_large_density_tf32x3_edge_shapes(dev, d):
+    """B5's 3xTF32 tiles (64 samples x 64 factor rows, 32-column slabs)
+    at D on either side of a tile's edge and N = 1,001, the factors' upper
+    triangles holding NaN (never read): comp and model at rtol 2e-4 / atol
+    2e-3 against the plain version, and the background mode with -inf log
+    weights (skipped rows) giving the plain mixture output, -inf where
+    every row is masked."""
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    k, n = 6, 1001
+    args = [t.to(dev) for t in _large_mixture(k, d, n, 2, seed=d)]
+    clean = list(args)
+    args[1] = (args[1] + torch.triu(torch.full_like(args[1], torch.nan),
+                                    1)).contiguous()
+    comp, model = dl.densities_large(*args)
+    comp_p, model_p = dl.densities_large_plain(*clean)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(comp, comp_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(model, model_p, rtol=2e-4, atol=2e-3)
+    half = list(args)
+    half[2] = args[2].clone()
+    half[2][torch.arange(k, device=dev) % 2 == 1] = -torch.inf
+    want = dl.mixture_logpdf_large_plain(*clean[:2], half[2], *clean[3:])
+    torch.testing.assert_close(dl.mixture_logpdf_large(*half), want,
+                               rtol=2e-4, atol=2e-3)
+    half[2] = torch.full_like(args[2], -torch.inf)
+    assert torch.isneginf(dl.mixture_logpdf_large(*half)).all()
+
+
+@pytest.mark.parametrize("n,live", [(16384, 24), (2000, 10)])
+def test_mixture_logpdf_at_d300_takes_b5(dev, n, live):
+    """B9's two call sizes on the stm300 path (40 slots at D = 300: the add
+    heuristic's 16,384 reservoir candidates, the ELBO estimate's 2,000
+    draws) go through B5's background mode and match B9's plain version at
+    B5's bar."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import mixture_logpdf as mix
+
+    args = [t.to(dev) for t in _large_mixture(40, 300, n, 40 - live,
+                                              seed=n)]
+    cuda.reset_launch_counts()
+    got = mix.mixture_logpdf(*args)
+    want = mix.mixture_logpdf_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["densities_large"] == 1
+    assert cuda.LAUNCHES["mixture_logpdf"] == 0
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-3)
+
+
 def test_large_d_density_pack_dispatch_on_card(dev):
     """A D = 300 density pack on the card launches B5 and B6, not B1/B2."""
     from gmmvi_tpu_torch.models import gmm as tgmm

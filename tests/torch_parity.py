@@ -1,6 +1,8 @@
 """Shared helpers for the tests that hold the PyTorch port against the JAX
 package: small flagship-shaped configs, JAX's random draws for one training
-step, and leaf-by-leaf state comparison.  Not a test module itself."""
+step, leaf-by-leaf state comparison, and both packages' states and targets
+in float64 (for comparisons that f32 rounding, amplified by the problem's
+conditioning, would decide).  Not a test module itself."""
 from __future__ import annotations
 
 import contextlib
@@ -89,13 +91,15 @@ def build_pair(dims=DIMS, codename="SAMTRON", ratio=None, **kw):
     return jg, tg
 
 
-def jax_step_draws(jax_gmmvi, key=None, kmax=None):
+def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     """The random numbers JAX's next ``_full_step`` consumes, recomputed
     from its key with the same splits (gmmvi.py ``_propose_phase`` and
     ``_update_phase``, sample_db.add_samples, add_new_component), as a
     StepDraws for the port.  ``key`` and ``kmax`` (the state's key and
     padded capacity by default) let a caller recompute a step's draws after
-    the step, at the capacity it grew to first."""
+    the step, at the capacity it grew to first.  ``dtype`` is the state's
+    float type (JAX draws its normals in it; under ``jax.enable_x64`` its
+    uniforms are float64 too)."""
     from gmmvi_tpu_torch import StepDraws
 
     st = jax_gmmvi.state
@@ -106,7 +110,7 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None):
     b, c = kmax * n_des, st.db.reservoir_capacity
     n_db = jax_gmmvi.vips_cfg.num_database_samples
     key1, k_sel = jax.random.split(key)
-    eps = jax.random.normal(k_sel, (kmax, n_des, d), jnp.float32)
+    eps = jax.random.normal(k_sel, (kmax, n_des, d), dtype)
     _, k_db, k_adapt = jax.random.split(key1, 3)
     slot_key, acc_key = jax.random.split(k_db)
     rand_slots = jax.random.randint(slot_key, (b,), 0, c)
@@ -179,3 +183,100 @@ def mc_elbo(model_logpdf, target_logpdf, means, chols, log_weights,
     if with_se:
         return float(np.mean(ratios)), float(np.std(ratios) / np.sqrt(n))
     return float(np.mean(ratios))
+
+
+# ---------------------------------------------------------------------------
+# float64 on both sides
+# ---------------------------------------------------------------------------
+
+def as_float64(named: dict) -> dict:
+    """State leaves with every float32 array cast (exactly) to float64."""
+    return {k: v.astype(np.float64) if v.dtype == np.float32 else v
+            for k, v in named.items()}
+
+
+def jax_state_from_leaves(like, named: dict):
+    """A JAX pytree shaped like ``like`` holding the arrays of ``named``
+    (keyed by path, as :func:`jax_state_leaves` gives them) in their own
+    dtypes; call under ``jax.enable_x64(True)`` for float64 leaves."""
+    from gmmvi_tpu.utils.checkpoint import _path_str
+
+    flat, treedef = jax.tree_util.tree_flatten_with_path(like)
+    return jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(named[_path_str(p)]) for p, _ in flat])
+
+
+def port_target_to_float64(target) -> None:
+    """The port's Student-T or GMM target ``target`` evaluated in float64
+    from here on, in place: the Student-T's float32 parameters (factored
+    in float64 on the host) cast exactly, the GMM's factors made anew in
+    float64 from its float32 covariances (in float32 the factors of the
+    star target's covariances, condition number 100, carry rounding that
+    its gradients magnify; JAX's float64 copy does the same)."""
+    from gmmvi_tpu_torch.models.gmm import create_gmm_state
+
+    if hasattr(target, "_inv_chols"):                    # Student-T mixture
+        for name in ("_means", "_chols", "_inv_chols", "_log_dets",
+                     "_log_w"):
+            setattr(target, name, getattr(target, name).double())
+    else:                                                # GMM
+        target._state = create_gmm_state(
+            target.target_weights, target.target_means, target.target_covs,
+            device=target._state.device, dtype=torch.float64)
+
+
+def jax_target_in_float64(target):
+    """A copy of JAX's Student-T or GMM target ``target`` that evaluates in
+    float64 under ``jax.enable_x64(True)`` (call it there).  Its
+    parameters are the original's float32 values cast exactly (the GMM's
+    factors made anew in float64 from its covariances, as
+    :func:`port_target_to_float64` does); its
+    ``log_density`` and ``log_density_and_grad`` are the original's
+    formulas without their cast of the samples to float32 (the JAX
+    targets evaluate in float32 whatever the samples' type)."""
+    import copy
+
+    from gmmvi_tpu.experiments.targets import gmm as jtg
+    from gmmvi_tpu.experiments.targets import student_t_mixture as jstm
+    from gmmvi_tpu.models import gmm as jgmm
+
+    def f64(v):
+        return jnp.asarray(np.asarray(v), jnp.float64)
+
+    class StudentT64(type(target)):
+        def log_density(self, x):
+            return jax.scipy.special.logsumexp(
+                self._component_log_probs(x) + self._log_w[:, None], axis=0)
+
+        def log_density_and_grad(self, x):
+            # jstm.StudentTMixture_LNPDF.log_density_and_grad's formula
+            nu, d = self.alpha, self.get_num_dimensions()
+            y, maha = self._whiten(x)
+            weighted = self._log_probs_from_maha(maha) + self._log_w[:, None]
+            ld = jax.scipy.special.logsumexp(weighted, axis=0)
+            scale = jnp.exp(weighted - ld[None, :]) * (nu + d) / (nu + maha)
+            return ld, -jnp.einsum("kij,kni,kn->nj", self._inv_chols, y,
+                                   scale,
+                                   precision=jax.lax.Precision.HIGHEST)
+
+    class Gmm64(type(target)):
+        def log_density(self, x):
+            return jgmm.log_density(self._state, x)
+
+        def log_density_and_grad(self, x):
+            return jgmm.log_density_and_grad(self._state, x)[:2]
+
+    out = copy.copy(target)
+    if isinstance(target, jstm.StudentTMixture_LNPDF):
+        out.__class__ = StudentT64
+        for name in ("_chols", "_inv_chols", "_log_dets", "_log_w"):
+            setattr(out, name, f64(getattr(target, name)))
+        out.target_means = target.target_means.astype(np.float64)
+    elif isinstance(target, jtg.GMM_LNPDF):
+        out.__class__ = Gmm64
+        out._state = jgmm.create_gmm_state(
+            target.target_weights, target.target_means, target.target_covs,
+            dtype=jnp.float64)
+    else:
+        raise TypeError(f"no float64 copy of {type(target).__name__}")
+    return out
