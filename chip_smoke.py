@@ -8,8 +8,8 @@ printing one JSON line:
 2. build: every CUDA kernel of the main paths, compiled from
    ``gmmvi_tpu_torch/csrc`` with ``nvcc`` (in parallel), with the seconds;
    then sass: ``cuobjdump --dump-sass`` of the libraries, the count of
-   ``HGMMA`` (wgmma) instructions in B5's and B7's tensor-core kernels,
-   which fails the run where it is 0;
+   ``HGMMA`` (wgmma) instructions in B5's, B7's and B8's tensor-core
+   kernels, which fails the run where it is 0;
 3. kernels: each kernel at its main path's shapes against its plain
    PyTorch version on the card (max error against the stated tolerance),
    timed with CUDA events: ``ms`` and ``plain_ms`` are device time per call
@@ -17,7 +17,7 @@ printing one JSON line:
    kernel, so the host's time is hidden), ``call_ms`` one call on an idle
    card with the host's part included (median of 50); with its least
    possible time on an H100 (``bound_ms``: the fp32 FMAs at 67 TFLOP/s or
-   the bytes at 3.35 TB/s; for B5 and B7 also ``bound_tc_ms``: the same
+   the bytes at 3.35 TB/s; for B5, B7 and B8 also ``bound_tc_ms``: the same
    FMAs as three TF32 products each at the 495 TFLOP/s tensor-core peak,
    or the bytes);
 4. main paths, each through its entry points, with the launch counters
@@ -72,7 +72,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # the kernels on the tensor cores (3xTF32 wgmma): source, kernel function
 TENSOR_CORE_KERNELS = {"densities_large": ("density_large.cu",
                                            "large_comp_kernel"),
-                       "stein_smom": ("stein.cu", "stein_mma_kernel")}
+                       "stein_smom": ("stein.cu", "stein_mma_kernel"),
+                       "more_grams": ("more.cu", "more_mma_kernel")}
 
 MAIN_ITERS = 130
 D, KMAX, K0, N_DES = 20, 48, 45, 200
@@ -287,12 +288,15 @@ def background_inputs(dev):
                                              x)]
 
 
-def more_inputs(dev):
+def more_inputs(dev, scattered: bool = False):
     """The MORE fit of the reuse path: K = 48 slots of which 45 are active,
     N = 28,800 window samples drawn from them in the window's order (runs
     of 200 per component), self-normalized importance weights of each
     active slot against the mixture (zero for the inactive ones), and
-    outputs on the scale of log ratios."""
+    outputs on the scale of log ratios.  ``scattered``: the same window
+    shuffled with a fixed generator, so that the zero weights lie
+    scattered through it as on the path (runs of 200 let whole 32-sample
+    slabs die, which the path's window does not)."""
     import torch
 
     from gmmvi_tpu_torch.ops.density import densities_plain
@@ -315,19 +319,23 @@ def more_inputs(dev):
     w = torch.softmax(comp - bg[None, :], dim=1)
     w[K0:] = 0.0
     y = torch.randn(n, generator=g) * 20.0 - 0.5 * (x / 100.0).square().sum(1)
+    if scattered:
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(5))
+        x, y, w = x[perm], y[perm], w[:, perm]
     return [t.to(dev).contiguous() for t in (inv_chols, means, w, y, x)]
 
 
 def measure_background(args) -> dict:
     """B4 on ``args`` against its plain version: the error (-inf in the same
-    places, atol 2e-4 + rtol 1e-4 elsewhere), device times and the bound
-    these inputs need."""
+    places, atol 2e-4 + rtol 1e-4 elsewhere, equal bits on two calls),
+    device times and the bound these inputs need."""
     import torch
 
     from gmmvi_tpu_torch.ops import background as bops
 
     got = bops.background_logpdf(*args)
     want = bops.background_logpdf_plain(*args)
+    same_bits = bool(torch.equal(got, bops.background_logpdf(*args)))
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
     err, ok = max_err(got[fin], want[fin], atol=2e-4, rtol=1e-4)
@@ -339,7 +347,8 @@ def measure_background(args) -> dict:
     # rows' means, lower triangles and log|L|, the samples, the output
     b_ms, b_by = bound_ms(2 * live * n * tri,
                           4 * (u + live * (d + tri + 1) + n * d + n))
-    return dict(max_abs_err=err, ok=ok, rows=u, live_rows=live, samples=n,
+    return dict(max_abs_err=err, ok=ok and same_bits, same_bits=same_bits,
+                rows=u, live_rows=live, samples=n,
                 ms=device_ms(lambda: bops.background_logpdf(*args)),
                 plain_ms=device_ms(lambda: bops.background_logpdf_plain(
                     *args)),
@@ -383,18 +392,28 @@ def measure_more(args) -> dict:
     # per component, only the samples with a nonzero weight: the Gram's
     # upper triangle, the rhs and the whitening
     pairs = float((args[2] != 0).sum())
-    b_ms, b_by = bound_ms(
-        2 * pairs * (f * (f + 1) / 2 + f + tri),
-        4 * (k * (tri + d) + k * n + n + n * d + k * f * f + k * f))
+    fmas = pairs * (f * (f + 1) / 2 + f + tri)
+    nbytes = 4 * (k * (tri + d) + k * n + n + n * d + k * f * f + k * f)
+    b_ms, b_by = bound_ms(2 * fmas, nbytes)
+    again = mops.more_grams(*args)
+    torch.cuda.synchronize()
+    same_bits = bool(torch.equal(again[0], gram) and torch.equal(again[1],
+                                                                  rhs))
+    dead = (args[2] == 0).all(1)
+    dead_zero = bool((gram[dead] == 0).all() and (rhs[dead] == 0).all())
     return dict(max_abs_err=float((gram - gram_p).abs().max()),
-                ok=max(rel) <= 2e-5, gram_rel_err=rel[0], rhs_rel_err=rel[1],
+                ok=max(rel) <= 2e-5 and same_bits and dead_zero,
+                same_bits=same_bits, dead_exact_zero=dead_zero,
+                gram_rel_err=rel[0], rhs_rel_err=rel[1],
                 solve_ok=quad_ok and lin_ok, solved=int(solved.sum()),
                 quad_abs_err=quad_err, lin_abs_err=lin_err, components=k,
                 samples=n, features=f, weighted_pairs=pairs,
                 ms=device_ms(lambda: mops.more_grams(*args)),
                 plain_ms=device_ms(lambda: mops.more_grams_plain(*args),
                                    reps=5, batch=4),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by,
+                bound_tc_ms=max(bound_tc_ms(fmas),
+                                nbytes / PEAK_BYTES_PER_S * 1e3))
 
 
 def reuse_kernel_rows(dev):
@@ -418,26 +437,35 @@ def reuse_kernel_rows(dev):
         raise AssertionError(f"background_logpdf disagrees with its plain "
                              f"version: {b4['max_abs_err']}")
 
-    args = more_inputs(dev)
-    b8 = dict(
-        name="more_grams", route="cuda", source="gmmvi_tpu_torch/csrc/more.cu",
-        replaces="gmmvi_tpu/ops/pallas_more.py:61",
-        tolerance="Gram and rhs within 2e-5 of each component's largest "
-                  "entry; solved quad atol 2e-4 + rtol 2e-3 and lin atol "
-                  "2e-3 + rtol 2e-3 at ridge 1e-12",
-        **measure_more(args),
-        call_ms=call_ms(lambda: mops.more_grams(*args), reps=20),
-        library_ms=None,
-        library="none: no single PyTorch call whitens by each component and "
-                "builds its quadratic-feature Gram")
-    emit({"phase": "kernel", **b8})
-    if not (b8["ok"] and b8["solve_ok"] and b8["solved"] == K0):
-        raise AssertionError(
-            f"more_grams disagrees with its plain version: Gram "
-            f"{b8['gram_rel_err']}, rhs {b8['rhs_rel_err']}, quad "
-            f"{b8['quad_abs_err']}, lin {b8['lin_abs_err']} over "
-            f"{b8['solved']} solved fits")
-    return [b4, b8]
+    rows = []
+    # the window in runs of 200 per component (the row of the kernels
+    # line), then shuffled: scattered zero weights, as on the path
+    for scattered in (False, True):
+        args = more_inputs(dev, scattered)
+        b8 = dict(
+            name="more_grams", route="cuda",
+            source="gmmvi_tpu_torch/csrc/more.cu",
+            replaces="gmmvi_tpu/ops/pallas_more.py:61",
+            inputs="scattered" if scattered else "runs",
+            tolerance="Gram and rhs within 2e-5 of each component's largest "
+                      "entry, equal bits on two calls, exact zeros without "
+                      "weight; solved quad atol 2e-4 + rtol 2e-3 and lin "
+                      "atol 2e-3 + rtol 2e-3 at ridge 1e-12",
+            **measure_more(args),
+            call_ms=call_ms(lambda: mops.more_grams(*args), reps=20),
+            library_ms=None,
+            library="none: no single PyTorch call whitens by each component "
+                    "and builds its quadratic-feature Gram")
+        emit({"phase": "kernel", **b8})
+        if not (b8["ok"] and b8["solve_ok"] and b8["solved"] == K0):
+            raise AssertionError(
+                f"more_grams disagrees with its plain version: Gram "
+                f"{b8['gram_rel_err']}, rhs {b8['rhs_rel_err']}, quad "
+                f"{b8['quad_abs_err']}, lin {b8['lin_abs_err']} over "
+                f"{b8['solved']} solved fits, equal bits "
+                f"{b8['same_bits']}, zeros {b8['dead_exact_zero']}")
+        rows.append(b8)
+    return [b4, rows[0]]
 
 
 def measure_density(name, args) -> dict:
@@ -796,6 +824,7 @@ def measure_mixture_logpdf(args) -> dict:
 
     got = mops.mixture_logpdf(*args)
     want = mops.mixture_logpdf_plain(*args)
+    same_bits = bool(torch.equal(got, mops.mixture_logpdf(*args)))
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
     err, ok = max_err(got[fin], want[fin], atol=1e-4, rtol=1e-4)
@@ -805,7 +834,8 @@ def measure_mixture_logpdf(args) -> dict:
     tri = d * (d + 1) / 2
     b_ms, b_by = bound_ms(2 * live * n * tri,
                           4 * (k + live * (d + tri + 1) + n * d + n))
-    return dict(max_abs_err=err, ok=ok, slots=k, live_slots=live, samples=n,
+    return dict(max_abs_err=err, ok=ok and same_bits, same_bits=same_bits,
+                slots=k, live_slots=live, samples=n,
                 dims=d, ms=device_ms(lambda: mops.mixture_logpdf(*args)),
                 plain_ms=device_ms(lambda: mops.mixture_logpdf_plain(*args)),
                 bound_ms=b_ms, bound_by=b_by)

@@ -28,7 +28,7 @@
 // every loop over it is unrolled with a guard, so the per-thread vectors live
 // in registers; for 32 < D <= 128 run-time loops keep them in local memory
 // (slower, but it compiles in seconds: unrolling that one is quadratic in D);
-// both live in whiten.cuh, shared with the background kernel (B4).
+// both live in whiten.cuh.
 #include "whiten.cuh"
 
 namespace {
@@ -99,8 +99,8 @@ density_kernel(const float* __restrict__ means,
   for (int c0 = 0; c0 < K; c0 += kc) {
     const int nk = min(kc, K - c0);
     __syncthreads();
-    gmmvi::stage(means, inv_chols, logw, logdets, nullptr, s_tri, s_mu, s_ld,
-                 s_lw, c0, nk, D, T, tid, NT);
+    gmmvi::stage(means, inv_chols, logw, logdets, s_tri, s_mu, s_ld, s_lw,
+                 c0, nk, D, T, tid, NT);
     __syncthreads();
     for (int c = g; c < nk; c += G) {
       const float maha = whiten<DMAX>(s_tri + c * T, s_mu + c * D, x, v, D);
@@ -146,8 +146,8 @@ density_kernel(const float* __restrict__ means,
     for (int c0 = 0; c0 < K; c0 += kc) {
       const int nk = min(kc, K - c0);
       __syncthreads();
-      gmmvi::stage(means, inv_chols, logw, logdets, nullptr, s_tri, s_mu,
-                   s_ld, s_lw, c0, nk, D, T, tid, NT);
+      gmmvi::stage(means, inv_chols, logw, logdets, s_tri, s_mu, s_ld, s_lw,
+                   c0, nk, D, T, tid, NT);
       __syncthreads();
       for (int c = g; c < nk; c += G) {
         const float* tri = s_tri + c * T;

@@ -1,5 +1,5 @@
 // Per-sample whitening against lower-triangular factors staged in shared
-// memory: the helpers shared by density.cu (B1/B2) and background.cu (B4).
+// memory: the helpers of density.cu (B1/B2).
 //
 // A thread owns one sample x and whitens it against one factor at a time,
 // y = L^{-1}(x - mu), in plain fp32 FMA (no TF32, no tensor cores).  Each
@@ -57,33 +57,31 @@ __device__ __forceinline__ float whiten(const float* __restrict__ tri,
   return maha;
 }
 
-// Stage rows rows[0..nk) (or c0..c0+nk when rows is null) of the factors,
-// means, log|L| and log weights into shared memory; T = D(D+1)/2 floats of
-// packed triangle per row.  Called by all `nthreads` threads of a block.
+// Stage rows c0..c0+nk of the factors, means, log|L| and log weights into
+// shared memory; T = D(D+1)/2 floats of packed triangle per row.  Called by
+// all `nthreads` threads of a block.
 __device__ __forceinline__ void stage(const float* __restrict__ means,
                                       const float* __restrict__ inv_chols,
                                       const float* __restrict__ logw,
                                       const float* __restrict__ logdets,
-                                      const int* rows, float* s_tri,
-                                      float* s_mu, float* s_ld, float* s_lw,
-                                      int c0, int nk, int D, int T, int tid,
-                                      int nthreads) {
+                                      float* s_tri, float* s_mu, float* s_ld,
+                                      float* s_lw, int c0, int nk, int D,
+                                      int T, int tid, int nthreads) {
   const int dd = D * D;
   for (int idx = tid; idx < nk * dd; idx += nthreads) {
     const int c = idx / dd, r = idx - c * dd;
     const int i = r / D, j = r - i * D;
-    const size_t src = rows ? rows[c] : c0 + c;
-    if (j <= i) s_tri[c * T + i * (i + 1) / 2 + j] = inv_chols[src * dd + r];
+    if (j <= i)
+      s_tri[c * T + i * (i + 1) / 2 + j] =
+          inv_chols[(size_t)(c0 + c) * dd + r];
   }
   for (int idx = tid; idx < nk * D; idx += nthreads) {
     const int c = idx / D;
-    const size_t src = rows ? rows[c] : c0 + c;
-    s_mu[idx] = means[src * D + (idx - c * D)];
+    s_mu[idx] = means[(size_t)(c0 + c) * D + (idx - c * D)];
   }
   for (int c = tid; c < nk; c += nthreads) {
-    const size_t src = rows ? rows[c] : c0 + c;
-    s_ld[c] = logdets[src];
-    s_lw[c] = logw[src];
+    s_ld[c] = logdets[c0 + c];
+    s_lw[c] = logw[c0 + c];
   }
 }
 

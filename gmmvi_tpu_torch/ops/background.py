@@ -60,10 +60,12 @@ def background_logpdf(means, inv_chols, log_weights, log_dets, samples
     u, d = means.shape
     n = samples.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=samples.device)
-    rc = cuda.library("background.cu").gmmvi_background(
+    lib = cuda.library("background.cu")
+    ws = cuda.workspace(lib, "gmmvi_background", samples.device, u, n, d)
+    rc = lib.gmmvi_background(
         means.data_ptr(), inv_chols.data_ptr(), log_weights.data_ptr(),
-        log_dets.data_ptr(), samples.data_ptr(), out.data_ptr(), u, n, d,
-        cuda.stream_ptr(samples.device))
+        log_dets.data_ptr(), samples.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), u, n, d, cuda.stream_ptr(samples.device))
     cuda.check(rc, "background_logpdf")
     cuda.LAUNCHES["background_logpdf"] += 1
     return out

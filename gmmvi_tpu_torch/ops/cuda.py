@@ -52,14 +52,18 @@ _SIGNATURES = {
         "gmmvi_tr_kl": [_c_ptr] * 9 + [_c_int] * 2 + [_c_ptr],
     },
     "background.cu": {
-        # means, inv_chols, logw, logdets, x, out, U, N, D, stream
-        "gmmvi_background": [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr],
-        # means, inv_chols, logw, logdets, x, out, K, N, D, stream
-        "gmmvi_mixture_logpdf": [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr],
+        # U, N, D
+        "gmmvi_background_workspace": [_c_int] * 3,
+        # means, inv_chols, logw, logdets, x, out, ws, U, N, D, stream
+        "gmmvi_background": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
+        # means, inv_chols, logw, logdets, x, out, ws, K, N, D, stream
+        "gmmvi_mixture_logpdf": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
     },
     "more.cu": {
-        # inv_chols, means, w, y, x, gram, rhs, K, N, D, stream
-        "gmmvi_more_grams": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
+        # K, N, D
+        "gmmvi_more_grams_workspace": [_c_int] * 3,
+        # inv_chols, means, w, y, x, gram, rhs, ws, K, N, D, stream
+        "gmmvi_more_grams": [_c_ptr] * 8 + [_c_int] * 3 + [_c_ptr],
     },
     "density_large.cu": {
         # K, N, D

@@ -53,10 +53,12 @@ def mixture_logpdf(means, inv_chols, log_weights, log_dets, samples
     k, d = means.shape
     n = samples.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=samples.device)
-    rc = cuda.library("background.cu").gmmvi_mixture_logpdf(
+    lib = cuda.library("background.cu")
+    ws = cuda.workspace(lib, "gmmvi_background", samples.device, k, n, d)
+    rc = lib.gmmvi_mixture_logpdf(
         means.data_ptr(), inv_chols.data_ptr(), log_weights.data_ptr(),
-        log_dets.data_ptr(), samples.data_ptr(), out.data_ptr(), k, n, d,
-        cuda.stream_ptr(samples.device))
+        log_dets.data_ptr(), samples.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), k, n, d, cuda.stream_ptr(samples.device))
     cuda.check(rc, "mixture_logpdf")
     cuda.LAUNCHES["mixture_logpdf"] += 1
     return out

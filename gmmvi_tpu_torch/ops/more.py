@@ -12,7 +12,10 @@ features in the reference's order (upper triangle by rows, then z, then 1):
 from ``inv_chols [K, D, D]``, ``means [K, D]``, weights ``[K, N]`` (zero for
 samples to ignore), outputs ``y [N]`` and samples ``x [N, D]``.  On a CPU
 tensor the wrapper runs the plain PyTorch version below; on a CUDA tensor it
-launches the kernel or raises.  D <= 45, the JAX kernel's envelope.
+launches the kernel (four launches: the live-sample lists, their slab
+schedule, the 3xTF32 Gram tiles over them, the fixed-order sum of the
+blocks' partial sums; scratch from PyTorch's allocator) or raises.  D <= 45, the JAX kernel's envelope, and
+K <= 65,535.
 """
 from __future__ import annotations
 
@@ -66,10 +69,13 @@ def more_grams(inv_chols, means, weights, outputs, samples
     opts = dict(dtype=torch.float32, device=samples.device)
     gram = torch.empty((k, f, f), **opts)
     rhs = torch.empty((k, f), **opts)
-    rc = cuda.library("more.cu").gmmvi_more_grams(
+    lib = cuda.library("more.cu")
+    ws = cuda.workspace(lib, "gmmvi_more_grams", samples.device, k, n, d)
+    rc = lib.gmmvi_more_grams(
         inv_chols.data_ptr(), means.data_ptr(), weights.data_ptr(),
         outputs.data_ptr(), samples.data_ptr(), gram.data_ptr(),
-        rhs.data_ptr(), k, n, d, cuda.stream_ptr(samples.device))
+        rhs.data_ptr(), ws.data_ptr(), k, n, d,
+        cuda.stream_ptr(samples.device))
     cuda.check(rc, "more_grams")
     cuda.LAUNCHES["more_grams"] += 1
     return gram, rhs

@@ -95,8 +95,9 @@ def test_tr_kl_kernel_matches_plain(dev, k, d):
     (2048, 20, 3000, 700)])
 def test_background_kernel_matches_plain(dev, u, d, n, n_masked):
     """B4 against its plain version: rtol 1e-4 / atol 2e-4 (the Pallas
-    kernel's bar); -inf in the same places (every row masked).  U = 2048,
-    the cap on max_background_dists, takes over 48 KB of shared memory."""
+    kernel's bar); -inf in the same places (every row masked); two calls
+    give the same bits (no atomics).  U = 2048 is the cap on
+    max_background_dists."""
     from gmmvi_tpu_torch.ops import background as bops
     from gmmvi_tpu_torch.ops import cuda
 
@@ -107,8 +108,10 @@ def test_background_kernel_matches_plain(dev, u, d, n, n_masked):
     before = cuda.LAUNCHES["background_logpdf"]
     got = bops.background_logpdf(*args)
     want = bops.background_logpdf_plain(*args)
+    again = bops.background_logpdf(*args)
     torch.cuda.synchronize()
-    assert cuda.LAUNCHES["background_logpdf"] == before + 1
+    assert cuda.LAUNCHES["background_logpdf"] == before + 2
+    assert torch.equal(got, again)
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     assert torch.isneginf(want).all() == (n_masked == u)
     fin = torch.isfinite(want)
@@ -123,7 +126,8 @@ def test_mixture_logpdf_kernel_matches_plain(dev, k, d, n, n_masked):
     """B9 against its plain version at rtol / atol 1e-4 (the Pallas
     kernel's bar), at the runner path's shapes (2,000 evaluation draws,
     16,384 add candidates) and others; -inf in the same places (every slot
-    masked).  Above D = 128 it takes B5 and counts there."""
+    masked); two calls give the same bits.  Above D = 128 it takes B5 and
+    counts there."""
     from gmmvi_tpu_torch.ops import cuda
     from gmmvi_tpu_torch.ops import mixture_logpdf as mops
 
@@ -131,9 +135,11 @@ def test_mixture_logpdf_kernel_matches_plain(dev, k, d, n, n_masked):
     before = dict(cuda.LAUNCHES)
     got = mops.mixture_logpdf(*args)
     want = mops.mixture_logpdf_plain(*args)
+    again = mops.mixture_logpdf(*args)
     torch.cuda.synchronize()
     name = "mixture_logpdf" if d <= 128 else "densities_large"
-    assert cuda.LAUNCHES[name] == before[name] + 1
+    assert cuda.LAUNCHES[name] == before[name] + 2
+    assert torch.equal(got, again)
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     assert torch.isneginf(want).all() == (n_masked == k)
     fin = torch.isfinite(want)
@@ -181,18 +187,24 @@ def test_runner_on_card_resumes_exactly(dev, tmp_path):
         np.testing.assert_array_equal(sa[name], sb[name], err_msg=name)
 
 
-@pytest.mark.parametrize("k,d,n", [(3, 2, 1000), (5, 7, 613),
-                                   (48, 20, 28801), (2, 45, 517)])
-def test_more_grams_kernel_matches_plain(dev, k, d, n):
+@pytest.mark.parametrize("k,d,n,order", [
+    (3, 2, 1000, "runs"), (5, 7, 613, "runs"), (48, 20, 28801, "runs"),
+    (2, 45, 517, "runs"), (48, 20, 28801, "scattered"),
+    (6, 45, 3001, "scattered")])
+def test_more_grams_kernel_matches_plain(dev, k, d, n, order):
     """B8 against its plain version on samples drawn from the components in
     runs of 50 with self-normalized importance weights, as the estimator
-    gives them (so whole 32-sample chunks carry no weight for a component
-    and are skipped); N not a multiple of the chunk, a zero-weight tail and
-    one component with no weight at all.  Gram and rhs within 2e-5 of each
-    component's largest entry (fp32 sums over N in another order).  The
-    solved terms are held at rtol 2e-3 in chip_smoke.py; on the random
-    inputs here they also measure the conditioning of the fit, not the
-    kernel."""
+    gives them (whole 32-sample slabs carry no weight for a component);
+    or ("scattered") the same window shuffled with a fixed generator, so
+    that the zero weights lie scattered as on the reuse path, and one
+    component keeps 45 live samples (not a multiple of the 32-sample
+    slab).  N not a multiple of the slab, a zero-weight tail and one
+    component with no weight at all.  Gram and rhs within 2e-5 of each
+    component's largest entry (3xTF32 sums over the live samples in
+    another order); an exactly-zero Gram without weight; two calls give
+    the same bits.  The solved terms are held at rtol 2e-3 in
+    chip_smoke.py; on the random inputs here they also measure the
+    conditioning of the fit, not the kernel."""
     from gmmvi_tpu_torch.ops import cuda
     from gmmvi_tpu_torch.ops import density as dops
     from gmmvi_tpu_torch.ops import more as mops
@@ -209,12 +221,20 @@ def test_more_grams_kernel_matches_plain(dev, k, d, n):
     w[:, n - 70:] = 0.0
     weighted = k - 1 if k > 2 else k
     w[weighted:] = 0.0
+    if order == "scattered":
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(k))
+        x, y, w = x[perm], y[perm], w[:, perm]
+        live = torch.nonzero(w[0])[:, 0]
+        w[0, live[45:]] = 0.0
+        assert int((w[0] != 0).sum()) == 45
     args = [t.to(dev).contiguous() for t in (inv, means, w, y, x)]
     before = cuda.LAUNCHES["more_grams"]
     gram, rhs = mops.more_grams(*args)
     gram_p, rhs_p = mops.more_grams_plain(*args)
+    gram_2, rhs_2 = mops.more_grams(*args)
     torch.cuda.synchronize()
-    assert cuda.LAUNCHES["more_grams"] == before + 1
+    assert cuda.LAUNCHES["more_grams"] == before + 2
+    assert torch.equal(gram, gram_2) and torch.equal(rhs, rhs_2)
     for got, want in ((gram, gram_p), (rhs, rhs_p)):
         scale = want.abs().reshape(k, -1).amax(1).clamp(min=1e-30)
         err = (got - want).abs().reshape(k, -1).amax(1)

@@ -1,4 +1,4 @@
-"""The split-TF32 arithmetic of kernels B5 and B7 (csrc/tf32x3.cuh),
+"""The split-TF32 arithmetic of kernels B5, B7 and B8 (csrc/tf32x3.cuh),
 emulated in plain PyTorch on the CPU and held against float64.
 
 The kernels split a float32 a into hi = tf32(a) (round to nearest, ties
@@ -17,6 +17,7 @@ import torch
 SLAB = 32           # reduction steps per slab (tf32x3::KS)
 B5_RTOL, B5_ATOL = 2e-4, 2e-3
 B7_BAR = 1e-5       # of each component's largest |entry|
+B8_BAR = 2e-5       # of each component's largest |entry|, on the card
 
 
 def tf32(a: torch.Tensor) -> torch.Tensor:
@@ -125,3 +126,92 @@ def test_density_3xtf32_within_bar():
                                / (B5_ATOL + B5_RTOL * np.abs(truth)))
     assert worst[3] <= 0.1, worst
     assert worst[1] > 0.5, worst
+
+
+def _running_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as 3xTF32 wgmma without a separate per-slab sum: every
+    8-step product (hi hi', hi lo', lo hi' in the kernel's issue order)
+    added straight into one float32 accumulator."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    total = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for s in range(0, a.shape[1], 8):
+        sl = slice(s, s + 8)
+        total = total + ah[:, sl] @ bh[sl]
+        total = total + ah[:, sl] @ bl[sl]
+        total = total + al[:, sl] @ bh[sl]
+    return total
+
+
+def test_more_gram_3xtf32_within_bar():
+    """B8's Gram emulated at D = 20 (F = 231 features plus the y column)
+    over a 3,000-sample window drawn from 4 far-apart components in random
+    order, with self-normalized float32 importance weights, so that exp
+    underflows 75% of the (component, sample) pairs to zeros scattered
+    through the window (29% of the pairs carry weight on the reuse path),
+    y on the reuse path's scale.  As the kernel takes it: each component's
+    live samples in increasing order, three contiguous shares (the
+    path's), slabs of 32, the weight folded into the row features before
+    the split, the shares' sums added in order.  Against float64 over the
+    same float32 whitened samples: within a tenth of the card's bar (2e-5
+    of each component's largest entry) with the separate per-slab sum
+    (2.0e-8 here) and without it (9.4e-8: this emulation rounds each
+    addition to nearest, and the card's tensor-core accumulator across
+    slabs errs far more, so the kernel keeps the per-slab sum); one TF32
+    pass reaches 1.7e-5, 0.85 of the bar."""
+    d, k, n, shares = 20, 4, 3000, 3
+    rng = np.random.RandomState(6)
+    means = rng.randn(k, d) * 45.0
+    a = rng.randn(k, d, d)
+    chols = np.linalg.cholesky(300.0 * (a @ a.transpose(0, 2, 1) / d
+                                        + 0.2 * np.eye(d)))
+    inv = np.linalg.inv(chols)
+    comp = rng.randint(0, k, n)
+    x = means[comp] + np.einsum("nij,nj->ni", chols[comp], rng.randn(n, d))
+    y = rng.randn(n) * 20.0 - 0.5 * ((x / 100.0) ** 2).sum(1)
+    z64 = np.einsum("kij,knj->kni", inv, x[None] - means[:, None])
+    logdet = np.log(np.diagonal(chols, axis1=1, axis2=2)).sum(1)
+    log_comp = -0.5 * (z64 ** 2).sum(-1) - logdet[:, None]
+    log_iw = (log_comp - np.logaddexp.reduce(log_comp - np.log(k), axis=0)
+              ).astype(np.float32)
+    log_w = log_iw - np.logaddexp.reduce(log_iw.astype(np.float64), axis=1,
+                                         keepdims=True).astype(np.float32)
+    w = np.exp(log_w)
+    w = w / w.sum(1, keepdims=True)
+    assert 0.2 < (w == 0).mean() < 0.9
+
+    x32, y32, inv32, mu32 = (torch.as_tensor(v.astype(np.float32))
+                             for v in (x, y, inv, means))
+    iu = torch.triu_indices(d, d)
+    errs = {"3xtf32": 0.0, "running": 0.0, "1xtf32": 0.0}
+    for kk in range(k):
+        live = torch.as_tensor(np.nonzero(w[kk])[0])
+        z = torch.einsum("ij,nj->ni", inv32[kk], x32[live] - mu32[kk])
+
+        def features(z, yv):
+            ones = torch.ones(len(z), 1, dtype=z.dtype)
+            return torch.cat([(z[:, :, None] * z[:, None, :])[:, iu[0], iu[1]],
+                              z, ones, yv[:, None]], 1)
+
+        feats = features(z, y32[live])
+        wk = torch.as_tensor(w[kk])[live]
+        rows = wk[:, None] * feats
+        f64 = features(z.double(), y32[live].double())
+        truth = (wk.double()[:, None] * f64).T @ f64
+        scale = float(truth.abs().max())
+        nslab = -(-len(live) // SLAB)
+        got = {name: torch.zeros(feats.shape[1], feats.shape[1])
+               for name in errs}
+        for s in range(shares):
+            lo = nslab * s // shares * SLAB
+            hi = nslab * (s + 1) // shares * SLAB
+            at, b = rows[lo:hi].T.contiguous(), feats[lo:hi]
+            got["3xtf32"] = got["3xtf32"] + product(at, b, 3)
+            got["running"] = got["running"] + _running_product(at, b)
+            got["1xtf32"] = got["1xtf32"] + product(at, b, 1)
+        for name, g in got.items():
+            errs[name] = max(errs[name],
+                             float((g.double() - truth).abs().max()) / scale)
+    assert errs["3xtf32"] <= 0.1 * B8_BAR, errs
+    assert errs["running"] <= 0.1 * B8_BAR, errs
+    assert errs["1xtf32"] > errs["3xtf32"] * 4, errs
