@@ -8,8 +8,8 @@ printing one JSON line:
 2. build: every CUDA kernel of the main paths, compiled from
    ``gmmvi_tpu_torch/csrc`` with ``nvcc`` (in parallel), with the seconds;
    then sass: ``cuobjdump --dump-sass`` of the libraries, the count of
-   ``HGMMA`` (wgmma) instructions in B5's, B7's and B8's tensor-core
-   kernels, which fails the run where it is 0;
+   ``HGMMA`` (wgmma) instructions in B5's, B6's, B7's and B8's
+   tensor-core kernels, which fails the run where it is 0;
 3. kernels: each kernel at its main path's shapes against its plain
    PyTorch version on the card (max error against the stated tolerance),
    timed with CUDA events: ``ms`` and ``plain_ms`` are device time per call
@@ -17,15 +17,18 @@ printing one JSON line:
    kernel, so the host's time is hidden), ``call_ms`` one call on an idle
    card with the host's part included (median of 50); with its least
    possible time on an H100 (``bound_ms``: the fp32 FMAs at 67 TFLOP/s or
-   the bytes at 3.35 TB/s; for B5, B7 and B8 also ``bound_tc_ms``: the same
-   FMAs as three TF32 products each at the 495 TFLOP/s tensor-core peak,
-   or the bytes);
+   the bytes at 3.35 TB/s; for B5-B8 also ``bound_tc_ms``: the same FMAs
+   as three TF32 products each at the 495 TFLOP/s tensor-core peak, or the
+   bytes); B3 twice: its per-trip KL (``tr_kl``, the reference) and the
+   fused bracket search (``tr_search``, one launch per search, held equal
+   to the bit to the host loop around ``tr_kl``);
 4. main paths, each through its entry points, with the launch counters
    set to 0 just before it and read just after, and checks on what comes
    out.  Through ``GMMVI.build_from_config`` and ``train_iter`` for 130
    iterations: SAMTRON on the 20-D Student-T mixture (45 components padded
    to 48, 200 samples per component, full covariances, no sample reuse;
-   kernels B1-B3, and B9 in the add heuristic), then ZAMTRUX (VIPS: MORE,
+   kernels B1, B2, B3's fused search, and B9 in the add heuristic), then
+   ZAMTRUX (VIPS: MORE,
    sample reuse at 2.0 x 200 per component, direct weight update; kernels
    B1-B4, B8 and B9) at the same widths, then SAMTRON on the 300-D
    Student-T mixture, ``get_default_config("SAMTRON", "stm300")`` (20
@@ -43,10 +46,12 @@ printing one JSON line:
    counts intact and a resume from a checkpoint equal to the bit;
 5. every kernel once more, on the inputs of its last launch in the
    ZAMTRUX run (B2 at both of its window sizes; the data decides how much
-   work B4 and B8 do), in the stm300 run (B5 at each of its six call
-   sizes, B9's two among them) and in the runner run (B9 at its two call
-   sizes), against its
-   plain version at the bar of phase 3, timed as there.
+   work B4 and B8 do; B3's per-trip KL at the etas its last search found),
+   in the stm300 run (B5 at each of its six call sizes, B9's two among
+   them) and in the runner run (B9 at its two call sizes), and B3's fused
+   search on its last inputs on each D <= 64 path (SAMTRON, ZAMTRUX, the
+   runner), against its plain version at the bar of phase 3, timed as
+   there.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
@@ -72,6 +77,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # the kernels on the tensor cores (3xTF32 wgmma): source, kernel function
 TENSOR_CORE_KERNELS = {"densities_large": ("density_large.cu",
                                            "large_comp_kernel"),
+                       "density_grads_large": ("density_large.cu",
+                                               "large_grad_kernel"),
                        "stein_smom": ("stein.cu", "stein_mma_kernel"),
                        "more_grams": ("more.cu", "more_mma_kernel")}
 
@@ -202,9 +209,12 @@ def sass_phase() -> dict:
 
 
 def max_err(got, want, atol: float, rtol: float):
-    """(max |got - want|, whether every entry is within atol + rtol|want|)."""
+    """(max |got - want|, whether every entry is within atol + rtol|want|);
+    raises when there is nothing to compare."""
     import torch
 
+    if got.numel() == 0:
+        raise AssertionError("an empty comparison: nothing was checked")
     diff = (got - want).abs()
     ok = bool(torch.all(diff <= atol + rtol * want.abs()))
     return float(diff.max()), ok
@@ -257,6 +267,26 @@ def tr_inputs(dev):
     inp = prepare_tr_kl_inputs(*[t.to(dev) for t in (means, chols, inv_chols,
                                                      rl, rq)])
     return etas.to(dev), inp
+
+
+def tr_search_inputs(dev):
+    """The fused search's inputs on ``tr_inputs``'s components: KL bounds
+    in [1e-3, 1], half the components cold-started (the bracket [-20, 80])
+    and half warm (the updater's bracket around a last eta in [1e-2,
+    1e3]), the last three slots inactive."""
+    import torch
+
+    _, inp = tr_inputs(dev)
+    g = torch.Generator().manual_seed(8)
+    k = KMAX
+    bound = 10.0 ** (torch.rand(k, generator=g) * 3.0 - 3.0)
+    log_last = torch.log(10.0 ** (torch.rand(k, generator=g) * 5.0 - 2.0))
+    cold = torch.arange(k) % 2 == 0
+    lower0 = torch.where(cold, -20.0, torch.clamp(log_last - 3.0, min=0.0))
+    upper0 = torch.where(cold, 80.0, log_last + 3.0)
+    active = torch.arange(k) < k - 3
+    return (inp, *[t.to(dev).contiguous() for t in (bound, lower0, upper0,
+                                                    active)])
 
 
 def background_inputs(dev):
@@ -382,10 +412,14 @@ def measure_more(args) -> dict:
                           / scale).max()))
     solved = torch.isfinite(quad).all((1, 2)) & torch.isfinite(quad_p).all(
         (1, 2)) & torch.isfinite(lin).all(1) & torch.isfinite(lin_p).all(1)
-    quad_err, quad_ok = max_err(quad[solved], quad_p[solved], atol=2e-4,
-                                rtol=2e-3)
-    lin_err, lin_ok = max_err(lin[solved], lin_p[solved], atol=2e-3,
-                              rtol=2e-3)
+    # reported, not held (``solve_ok``): none may be solved on both sides
+    quad_err = lin_err = None
+    quad_ok = lin_ok = False
+    if bool(solved.any()):
+        quad_err, quad_ok = max_err(quad[solved], quad_p[solved], atol=2e-4,
+                                    rtol=2e-3)
+        lin_err, lin_ok = max_err(lin[solved], lin_p[solved], atol=2e-3,
+                                  rtol=2e-3)
     d = args[1].shape[1]
     f = mops.num_features(d)
     tri = d * (d + 1) / 2
@@ -502,6 +536,14 @@ def measure_density(name, args) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def kl_fmas(d: int) -> float:
+    """FMAs of one trust-region KL evaluation at D = d: the Cholesky's
+    trailing-triangle updates d^3/6, the forward solve of the d x d
+    right-hand side O^T d^3/2, and ~3 d^2 for the rest (forming P's lower
+    triangle, the two vector solves, the trace and Mahalanobis sums)."""
+    return d ** 3 / 6 + d ** 3 / 2 + 3 * d * d
+
+
 def measure_tr_kl(etas, inp) -> dict:
     """B3 on ``(etas, inp)`` against its plain version, over the components
     whose inputs are finite (an inactive slot of the MORE path carries NaN
@@ -523,9 +565,7 @@ def measure_tr_kl(etas, inp) -> dict:
     feas = ~inf_want
     err, ok = max_err(got[fin][feas], want[fin][feas], atol=1e-4, rtol=1e-4)
     n_feas = int(feas.sum())
-    # per feasible component: Cholesky D^3/3, the D x D forward solve D^3/2,
-    # the vector solves and the Mahalanobis term ~2 D^2, as FMAs
-    flops = 2 * n_feas * (d ** 3 / 3 + d ** 3 / 2 + 2 * d * d)
+    flops = 2 * n_feas * kl_fmas(d)
     # each input read once: the lower triangles of the old precision,
     # R_quad and the old inverse factor, three [D] vectors, eta and the
     # constant; the [K] KLs written
@@ -536,6 +576,58 @@ def measure_tr_kl(etas, inp) -> dict:
                 compared=int(fin.sum()), infeasible=int(inf_want.sum()),
                 ms=device_ms(lambda: tops.tr_kl(etas, inp)),
                 plain_ms=device_ms(lambda: tops.tr_kl_plain(etas, inp)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def measure_tr_search(args) -> dict:
+    """The fused search (B3, one launch) on ``args`` = (inputs, bounds,
+    lower0, upper0, active): its etas (exp(lower), exp(upper)) and trips
+    equal, bit for bit, to the host loop around B3's per-trip kernel and
+    to a second call (``ok``), and against the plain version (the host loop
+    around ``tr_kl_plain``) the number of components whose result differs
+    (``differ_from_plain``: a KL within the plain version's 1e-4 agreement
+    of a threshold can send a bracket the other way; held to at most one)
+    and the largest |difference| of exp(lower) there.  Device ms per search
+    (``ms``); ``plain_ms`` and ``host_loop_ms``, the host loops' time per
+    search (their syncs included).  The bound counts this run's trips: per
+    trip a KL evaluation's FMAs (as ``measure_tr_kl``), the inputs read
+    once."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import trust_region as tops
+
+    inp = args[0]
+
+    def host_loop(per_component_trips: bool = False):
+        return tops.bracket_search(lambda e: tops.tr_kl(e, inp), *args[1:],
+                                   per_component_trips=per_component_trips)
+
+    got = tops.tr_search(*args)
+    again = tops.tr_search(*args)
+    loop = host_loop(per_component_trips=True)
+    plain = tops.tr_search_plain(*args)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    equal_loop = all(torch.equal(a, b) for a, b in zip(got, loop))
+    differ = torch.zeros_like(got[2], dtype=torch.bool)
+    for a, b in zip(got, plain):
+        differ |= ~((a == b) | (torch.isnan(a) & torch.isnan(b)))
+    n_differ = int(differ.sum())
+    err = float((got[0] - plain[0]).abs().max())
+    k, d = inp.means.shape
+    trips = got[2].to(torch.float64)
+    flops = 2 * float(trips.sum()) * kl_fmas(d)
+    b_ms, b_by = bound_ms(flops, 4 * (k * (3 * d * (d + 1) / 2 + 3 * d + 4)
+                                      + 3 * k) + k)
+    return dict(max_abs_err=err, ok=same_bits and equal_loop and n_differ <= 1,
+                same_bits=same_bits, equal_to_host_loop=equal_loop,
+                differ_from_plain=n_differ, components=k,
+                active=int(args[4].sum()), trips_max=int(got[2].max()),
+                trips_sum=int(got[2].sum()),
+                ms=device_ms(lambda: tops.tr_search(*args)),
+                plain_ms=device_ms(lambda: tops.tr_search_plain(*args),
+                                   reps=5, batch=4),
+                host_loop_ms=device_ms(host_loop, reps=5, batch=4),
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -591,10 +683,28 @@ def kernel_phase(dev):
     trips(True, 20)
     row["trip_ms_with_sync"] = trips(True)
     row["trip_ms_without_sync"] = trips(False)
+    # B3's per-trip entry: the reference of the fused search, off the paths
     emit({"phase": "kernel", **row})
     if not (row["ok"] and row["compared"] == KMAX):
         raise AssertionError(f"tr_kl disagrees with its plain version: "
                              f"{row['max_abs_err']}")
+
+    sargs = tr_search_inputs(dev)
+    row = dict(
+        name="tr_search", route="cuda",
+        source="gmmvi_tpu_torch/csrc/trust_region.cu",
+        replaces="gmmvi_tpu/ops/pallas_trust_region.py:65",
+        tolerance="exp(lower), exp(upper) and trips equal to the host loop "
+                  "around the per-trip kernel and on two calls, bit for "
+                  "bit; at most one component other than the plain "
+                  "version's",
+        **measure_tr_search(sargs),
+        call_ms=call_ms(lambda: tops.tr_search(*sargs)), library_ms=None,
+        library="none: no single PyTorch call runs a batched bisection")
+    emit({"phase": "kernel", **row})
+    if not row["ok"]:
+        raise AssertionError(f"tr_search disagrees with the host loop or its "
+                             f"plain version: {row}")
     rows.append(row)
     return (rows + reuse_kernel_rows(dev) + large_kernel_rows(dev)
             + mixture_logpdf_rows(dev))
@@ -677,30 +787,41 @@ def measure_large_density(name, args) -> dict:
 
 def measure_large_grads(args) -> dict:
     """B6 on ``args`` (means, inv_chols, logw, comp, model, x) against its
-    plain version (rtol and atol 2e-3); the bound counts D^2 FMAs for each
-    (component, sample) pair whose responsibility is nonzero."""
+    plain version (rtol and atol 2e-3) and equal bits on two calls; the
+    bound counts D^2 FMAs for each (component, sample) pair whose
+    responsibility is nonzero (``bound_tc_ms``: as three TF32 products),
+    ``live_tile_pairs`` the (component, 64-sample tile) pairs the kernel
+    walks."""
     import torch
 
     from gmmvi_tpu_torch.ops import density_large as dl
 
     got = dl.density_grads_large(*args)
+    again = dl.density_grads_large(*args)
     want = dl.density_grads_large_plain(*args)
     torch.cuda.synchronize()
     err, ok = max_err(got, want, atol=2e-3, rtol=2e-3)
+    same_bits = bool(torch.equal(got, again))
     means, _, logw, comp, model, x = args
     (k, d), n = means.shape, x.shape[0]
     resp = torch.exp(comp + logw[:, None] - model[None, :])
-    pairs = float(((resp > 0) & (logw > -math.inf)[:, None]
-                   & (model > -math.inf)[None, :]).sum())
-    b_ms, b_by = bound_ms(2 * pairs * d * d,
-                          4 * (k * (d + d * (d + 1) / 2 + 1) + k * n + n
-                               + 2 * n * d))
-    return dict(max_abs_err=err, ok=ok, components=k, samples=n,
-                responsible_pairs=pairs,
+    live = ((resp > 0) & (logw > -math.inf)[:, None]
+            & (model > -math.inf)[None, :])
+    pairs = float(live.sum())
+    tiles = -(-n // 64)
+    live_tiles = torch.nn.functional.pad(live, (0, tiles * 64 - n)).reshape(
+        k, tiles, 64).any(-1)
+    nbytes = 4 * (k * (d + d * (d + 1) / 2 + 1) + k * n + n + 2 * n * d)
+    b_ms, b_by = bound_ms(2 * pairs * d * d, nbytes)
+    return dict(max_abs_err=err, ok=ok and same_bits, same_bits=same_bits,
+                components=k, samples=n, responsible_pairs=pairs,
+                live_tile_pairs=int(live_tiles.sum()), sample_tiles=tiles,
                 ms=device_ms(lambda: dl.density_grads_large(*args)),
                 plain_ms=device_ms(lambda: dl.density_grads_large_plain(*args),
                                    reps=11, batch=5),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by,
+                bound_tc_ms=max(bound_tc_ms(pairs * d * d),
+                                nbytes / PEAK_BYTES_PER_S * 1e3))
 
 
 def measure_stein(args) -> dict:
@@ -763,7 +884,7 @@ def large_kernel_rows(dev):
         name="density_grads_large", route="cuda",
         source="gmmvi_tpu_torch/csrc/density_large.cu",
         replaces="gmmvi_tpu/ops/pallas_density_large.py:164",
-        tolerance="rtol 2e-3 + atol 2e-3",
+        tolerance="rtol 2e-3 + atol 2e-3; equal bits on two calls",
         **measure_large_grads(gargs),
         call_ms=call_ms(lambda: dl.density_grads_large(*gargs)),
         library_ms=None,
@@ -949,15 +1070,40 @@ def capture_last_inputs(captured: dict):
     ESS pass over the reuse window and the weight update over the total
     window, differ in size)."""
     from gmmvi_tpu_torch.ops import density
-    from gmmvi_tpu_torch.optimization import (component_updaters,
-                                              ng_estimators, sample_db)
+    from gmmvi_tpu_torch.optimization import ng_estimators, sample_db
 
     return [recording(captured, density, "density_pack"),
             recording(captured, density, "densities",
                       key=lambda args: ("densities", args[4].shape[0])),
-            recording(captured, component_updaters, "tr_kl"),
             recording(captured, sample_db, "background_logpdf"),
             recording(captured, ng_estimators, "more_grams")]
+
+
+def watch_search(searches: dict, path: str, trips: list):
+    """Replace the updater's fused search by a wrapper that keeps its
+    latest arguments in ``searches[path]`` and each call's trips [K] (a
+    device tensor, read at the end: no host sync) in ``trips``, and calls
+    it as before; returns the undo."""
+    from gmmvi_tpu_torch.optimization import component_updaters
+
+    fn = component_updaters.tr_search
+
+    def call(*args):
+        searches[path] = args
+        out = fn(*args)
+        trips.append(out[2])
+        return out
+
+    component_updaters.tr_search = call
+    return lambda: setattr(component_updaters, "tr_search", fn)
+
+
+def lockstep_trips(trips: list) -> list:
+    """Per search, the trips its slowest component took: the trips of the
+    lockstep host loop the fused search replaces."""
+    import torch
+
+    return torch.stack([t.max() for t in trips]).tolist() if trips else []
 
 
 def capture_large_d_inputs(captured: dict):
@@ -977,10 +1123,11 @@ def capture_large_d_inputs(captured: dict):
             recording(captured, stein, "stein_smom")]
 
 
-def main_path_phase(dev, codename, kernel_names, captured=None):
+def main_path_phase(dev, codename, kernel_names, searches, captured=None):
     """130 iterations of ``codename`` through the entry points, the launch
-    counters set to 0 just before and read just after; with ``captured``,
-    the inputs of the last B4 and B8 launches go there."""
+    counters set to 0 just before and read just after; the last fused
+    search's inputs go to ``searches[codename]``; with ``captured``, the
+    inputs of the last B1, B2, B4 and B8 launches go there."""
     import torch
 
     from gmmvi_tpu_torch.experiments.setup import init_experiment
@@ -1006,7 +1153,10 @@ def main_path_phase(dev, codename, kernel_names, captured=None):
         return prop
 
     gmmvi._propose_phase = recording_propose
-    restore = capture_last_inputs(captured) if captured is not None else []
+    trips: list = []
+    restore = [watch_search(searches, codename, trips)]
+    if captured is not None:
+        restore += capture_last_inputs(captured)
 
     torch.cuda.reset_peak_memory_stats(dev)
     cuda.reset_launch_counts()
@@ -1030,12 +1180,14 @@ def main_path_phase(dev, codename, kernel_names, captured=None):
     end_lnpdf = newest_window_mean_lnpdf(st.db)
     means_finite = bool(torch.isfinite(st.model.means[:num_active]).all())
     reused = [int(r) for r in reused]
+    search_trips = lockstep_trips(trips)
     step_ms = steady_s / (MAIN_ITERS - 1) * 1e3
     out = dict(
         phase="main_path", codename=codename, iterations=MAIN_ITERS,
         first_step_s=first_s, step_ms=step_ms,
         samples_per_s=KMAX * N_DES / (step_ms / 1e3),
-        trips_per_step=launches["tr_kl"] / MAIN_ITERS,
+        trips_per_step=sum(search_trips) / MAIN_ITERS,
+        search_launches_per_step=launches["tr_search"] / MAIN_ITERS,
         launches=launches, num_active=num_active,
         fevals=int(st.db.num_samples_written),
         num_reused_mean=sum(reused) / len(reused),
@@ -1052,7 +1204,11 @@ def main_path_phase(dev, codename, kernel_names, captured=None):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{codename} path")
-    wanted = {"density_pack": MAIN_ITERS, "densities": MAIN_ITERS}
+    wanted = {"density_pack": MAIN_ITERS, "densities": MAIN_ITERS,
+              "tr_search": MAIN_ITERS}
+    if launches["tr_kl"] != 0:
+        raise AssertionError(f"the per-trip KL launched {launches['tr_kl']} "
+                             f"times on the {codename} path")
     if codename == "ZAMTRUX":
         wanted.update(background_logpdf=2 * MAIN_ITERS,
                       more_grams=MAIN_ITERS)
@@ -1068,18 +1224,23 @@ def main_path_phase(dev, codename, kernel_names, captured=None):
     return launches
 
 
-def main_path_input_rows(captured) -> None:
+def main_path_input_rows(captured, search_args) -> None:
     """Every kernel once more on the inputs of its last launch in the
-    ZAMTRUX run (B2 at each of its two window sizes), against its plain
-    version at the kernel phase's bar; fails on a miss.  The solved MORE
-    terms are reported, not held: on the main path's data the ridge-1e-12
-    fit may be ill-conditioned."""
+    ZAMTRUX run (B2 at each of its two window sizes; B3's per-trip KL at
+    the etas the last search found), against its plain version at the
+    kernel phase's bar; fails on a miss.  The solved MORE terms are
+    reported, not held: on the main path's data the ridge-1e-12 fit may be
+    ill-conditioned."""
+    from gmmvi_tpu_torch.ops import trust_region as tops
+
     measures = [("density_pack", captured["density_pack"],
                  lambda a: measure_density("density_pack", a))]
     for key in sorted(k for k in captured if k[0] == "densities"):
         measures.append((f"densities[N={key[1]}]", captured[key],
                          lambda a: measure_density("densities", a)))
-    measures += [("tr_kl", captured["tr_kl"], lambda a: measure_tr_kl(*a)),
+    found = tops.tr_search(*search_args)[0]
+    measures += [("tr_kl", (found, search_args[0]),
+                  lambda a: measure_tr_kl(*a)),
                  ("background_logpdf", captured["background_logpdf"],
                   measure_background),
                  ("more_grams", captured["more_grams"], measure_more)]
@@ -1095,6 +1256,25 @@ def main_path_input_rows(captured) -> None:
 
 
 LARGE_KERNELS = ("densities_large", "density_grads_large", "stein_smom")
+
+
+def search_rows(searches: dict) -> dict:
+    """The fused search once more on the inputs of its last launch on each
+    D <= 64 path, held as in the kernel phase; fails on a miss.  Returns
+    per path its device ms, trips and equality with the host loop."""
+    out = {}
+    for path in ("SAMTRON", "ZAMTRUX", "gmm20"):
+        row = measure_tr_search(searches[path])
+        emit({"phase": "kernel_on_main_path_inputs", "path": path,
+              "name": "tr_search", **row})
+        if not row["ok"]:
+            raise AssertionError(f"tr_search disagrees on the {path} path's "
+                                 f"inputs: {row}")
+        out[path] = {k: row[k] for k in ("ms", "trips_max", "trips_sum",
+                                         "equal_to_host_loop",
+                                         "differ_from_plain",
+                                         "host_loop_ms")}
+    return out
 
 
 def large_d_phase(dev, captured):
@@ -1121,11 +1301,11 @@ def large_d_phase(dev, captured):
              sel.reused_samples_per_component, sel.max_background_dists)
     if shape != (D_LARGE, KMAX_LARGE, N_DES_LARGE, 2 * N_DES_LARGE, U_LARGE):
         raise AssertionError(f"stm300 built as {shape}")
-    # each step's reused-sample count (device tensors, read at the end) and
-    # bisection trips (a host count)
+    # each step's reused-sample count (a device tensor, read at the end)
+    # and bisection trips (a host count)
     reused, trips = [], []
     propose = gmmvi._propose_phase
-    search = component_updaters._bracketing_search_batched
+    search = component_updaters.bracket_search
 
     def recording_propose(state, draws):
         prop = propose(state, draws)
@@ -1138,7 +1318,7 @@ def large_d_phase(dev, captured):
         return out
 
     gmmvi._propose_phase = recording_propose
-    component_updaters._bracketing_search_batched = counting_search
+    component_updaters.bracket_search = counting_search
     restore = capture_large_d_inputs(captured)
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1165,7 +1345,7 @@ def large_d_phase(dev, captured):
     launches = dict(cuda.LAUNCHES)
     for undo in restore:
         undo()
-    component_updaters._bracketing_search_batched = search
+    component_updaters.bracket_search = search
 
     st = gmmvi.state
     num_active = int(st.model.num_active)
@@ -1181,7 +1361,8 @@ def large_d_phase(dev, captured):
         probe_step_ms=probe_ms, first_step_s=first_s, step_ms=step_ms,
         samples_per_s=KMAX_LARGE * N_DES_LARGE / (step_ms / 1e3),
         fevals=fevals, fevals_per_step=fevals / iters,
-        trips_per_step=sum(trips) / iters, launches=launches,
+        trips_per_step=sum(trips) / iters,
+        launches=launches,
         launches_per_step={k: v / iters for k, v in launches.items()},
         num_active=num_active, num_reused_mean=sum(reused) / len(reused),
         num_reused=reused, elbo_start=start_elbo, elbo_end=end_elbo,
@@ -1203,8 +1384,8 @@ def large_d_phase(dev, captured):
         if launches[name] < least:
             raise AssertionError(f"{name}: {launches[name]} launches < "
                                  f"{least} on the stm300 path")
-    for name in ("density_pack", "densities", "tr_kl", "background_logpdf",
-                 "more_grams"):
+    for name in ("density_pack", "densities", "tr_kl", "tr_search",
+                 "background_logpdf", "more_grams"):
         if launches[name] != 0:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  "on the stm300 path")
@@ -1319,13 +1500,14 @@ def watch_repads(gmmvi, repads: list) -> None:
     gmmvi.grow_capacity = recording_grow
 
 
-def runner_phase(dev, captured):
+def runner_phase(dev, captured, searches):
     """The runner path, as docs/get_started.md runs it:
     ``GmmviRunner.build_from_config(get_default_config("SAMTRON",
     "gmm20"))`` and ``iterate_and_log(n)`` for n = 0..1499 (0..599 if the
     median of steps 1-10 passes 60 ms), the launch counters set to 0 just
     before and read just after; B9's last inputs at each call size go to
-    ``captured``.  Holds: every metric finite, the last evaluation's ELBO
+    ``captured``, the last fused search's to ``searches["gmm20"]``.  Holds:
+    every metric finite, the last evaluation's ELBO
     above the first's, a repad with its counts intact (if the run never
     fills its 24 slots, the same config with 8 slots runs until it
     repads), and resume: a checkpoint saved halfway, loaded into a fresh
@@ -1349,9 +1531,11 @@ def runner_phase(dev, captured):
     if shape != (D, 24, 100, 200, N_CANDIDATES, 100, 30, 100, 1000,
                  N_CANDIDATES):
         raise AssertionError(f"gmm20 built as {shape}")
+    trips: list = []
     restore = [recording(captured, mops, "mixture_logpdf",
                          key=lambda args: ("mixture_logpdf",
-                                           args[4].shape[0]))]
+                                           args[4].shape[0])),
+               watch_search(searches, "gmm20", trips)]
     repads, evals, walls = [], [], []
     watch_repads(g, repads)
     path = BUILD_DIR / "runner_resume.npz"
@@ -1437,6 +1621,7 @@ def runner_phase(dev, captured):
         kmax=st.model.max_components, repads=repads,
         repads_from_8_slots=small_repads, launches=launches,
         launches_per_step={k: v / iters for k, v in launches.items()},
+        trips_per_step=sum(lockstep_trips(trips)) / iters,
         resume_at=resume_at, resume_steps=RUNNER_RESUME_STEPS,
         resume_exact=not differ, resume_differs=differ,
         peak_mem_mb=peak_mb)
@@ -1454,11 +1639,14 @@ def runner_phase(dev, captured):
     if differ:
         raise AssertionError(f"the resumed run differs from the unbroken "
                              f"one: {differ}")
-    for name in ("density_pack", "densities", "tr_kl", "background_logpdf",
-                 "mixture_logpdf"):
+    for name in ("density_pack", "densities", "tr_search",
+                 "background_logpdf", "mixture_logpdf"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "runner path")
+    if launches["tr_kl"] != 0:
+        raise AssertionError(f"the per-trip KL launched {launches['tr_kl']} "
+                             "times on the runner path")
     if launches["mixture_logpdf"] < 2 * len(evals):
         raise AssertionError(f"mixture_logpdf: {launches['mixture_logpdf']}"
                              f" launches < 2 per evaluation")
@@ -1504,20 +1692,26 @@ def main() -> int:
     sass_phase()
 
     rows = kernel_phase(dev)
-    flagship = ("density_pack", "densities", "tr_kl")
+    flagship = ("density_pack", "densities", "tr_search")
     captured: dict = {}
     captured_large: dict = {}
     captured_runner: dict = {}
-    by_path = {"SAMTRON": main_path_phase(dev, "SAMTRON", flagship),
+    searches: dict = {}
+    by_path = {"SAMTRON": main_path_phase(dev, "SAMTRON", flagship,
+                                          searches),
                "ZAMTRUX": main_path_phase(
                    dev, "ZAMTRUX",
-                   flagship + ("background_logpdf", "more_grams"), captured),
+                   flagship + ("background_logpdf", "more_grams"), searches,
+                   captured),
                "stm300": large_d_phase(dev, captured_large),
-               "gmm20": runner_phase(dev, captured_runner)}
-    main_path_input_rows(captured)
+               "gmm20": runner_phase(dev, captured_runner, searches)}
+    main_path_input_rows(captured, searches["ZAMTRUX"])
     large_d_input_rows(captured_large)
     runner_input_rows(captured_runner)
+    on_paths = search_rows(searches)
     for r in rows:
+        if r["name"] == "tr_search":
+            r["paths"] = on_paths
         # the flagship's count for B1-B3, the reuse path's for B4 and B8,
         # the stm300 path's for B5-B7, the runner path's for B9
         path = ("SAMTRON" if r["name"] in flagship else
@@ -1526,7 +1720,7 @@ def main() -> int:
         r["launches"] = by_path[path][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_tc_ms")
+            "bound_tc_ms", "paths")
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,10 +10,12 @@
 // N = 12,000, D = 300) B5 whitens every sample against every factor,
 // K N D(D+1)/2 = 2.2e10 multiply-adds, and B6 applies every precision,
 // K N D^2 = 4.3e10, against ~15 MB of factors and samples: the arithmetic
-// outweighs the bytes some hundred times.  B5 runs on the tensor cores as
-// three TF32 products per product (3xTF32, tf32x3.cuh: float32 accuracy),
-// 1.3e11 FLOP at stm300, ~0.26 ms at their 495 TFLOP/s; B6 still on the
-// CUDA cores (fp32 FMA, simt_tile.cuh).
+// outweighs the bytes some hundred times.  Both run on the tensor cores as
+// three TF32 products per product (3xTF32, tf32x3.cuh: float32 accuracy):
+// B5 1.3e11 FLOP at stm300, ~0.26 ms at their 495 TFLOP/s, B6 with every
+// responsibility nonzero 2.6e11, ~0.52 ms.  On the path B6 needs far less:
+// the components lie far apart, so most (component, sample) pairs carry a
+// responsibility that underflows to zero.
 //
 // Why the small-D design (density.cu: one sample per thread, the factors
 // resident in shared memory) does not carry over: at D = 300 one factor is
@@ -50,26 +52,35 @@
 // about half are live costs only the live half; comp is then scratch that
 // the caller never sees.
 //
-// B6, grads[n] = -sum_k r_k(n) Lambda_k (x_n - mu_k) with r_k = exp(comp_k
-// + log w_k - model) from B5's outputs and Lambda_k = L_k^{-T} L_k^{-1}
-// formed by the wrapper: one block of 64 threads per (64-row slab of D,
-// 64-sample tile) accumulates over every component and every 32-row slab
-// of Lambda_k, the operand r_k(n) (x_n - mu_k) built while staging, with
-// the 8 x 8 register micro-tiles of simt_tile.cuh.  No reduction crosses
-// blocks.  A component whose responsibilities underflow to zero on the
-// whole tile is skipped (at stm300 the components lie far apart, so most
-// are).
-#include <math.h>
-
-#include "simt_tile.cuh"
+// B6, grads[n] = -sum_k (r_k(n) (x_n - mu_k))^T Lambda_k with r_k =
+// exp(comp_k + log w_k - model) from B5's outputs and the symmetric
+// Lambda_k = L_k^{-T} L_k^{-1} formed by the wrapper: the same engine, the
+// samples along M, the output's columns d along N in tiles of 64, the
+// reduction over e; Lambda_k's rows are its columns, so its slabs are
+// K-major as they stand.  Pre-passes write r [K][sample tiles][64] with a
+// flag per (component, 64-sample tile) "some r is nonzero", the samples
+// as B5's A slabs, the means padded per 32-column slab, the TF32 halves
+// of Lambda_k as 64-column x 32-step B slabs for the components with a
+// live tile only, and the sample groups in order of decreasing work.  One
+// block of two warpgroups owns a 128-sample x 64-column tile of grads (470
+// blocks at stm300, two to an SM) and walks, through a ring of three
+// bulk-copied stages, the 32-step slabs of only the components live on
+// one of its two tiles: no copy is issued for a dead pair, and a
+// warpgroup whose own tile is dead for the stage's component skips its
+// products.  On the path the live pairs are few and uneven (820 live
+// (component, tile) pairs of 7,520 on stm300's last inputs), so blocks are
+// numbered longest first, and the card, which starts them in that order,
+// packs the short ones behind (measured on an H100 at 700 W: on the
+// stm300 path's last inputs 0.323 ms against 0.363 in index order, and
+// two warpgroups and three stages beat four warpgroups and four stages,
+// which copy for the union of four tiles' components).  A = r(n)(x_n - mu_k) is formed in registers, mu
+// subtracted and r folded in before the split (B5's cancellation, and
+// r's range of many decades); each slab's twelve wgmma start from zero and
+// are added into a separate fp32 sum, in the same order on every call (no
+// atomics, no reduction across blocks).
 #include "tf32x3.cuh"
 
 namespace {
-
-using simt::NT;
-using simt::S;
-using simt::T;
-using simt::TK;
 
 constexpr float LOG_2PI = 1.8378770664093453f;
 constexpr int MAX_D = 512;
@@ -77,6 +88,9 @@ constexpr int MAX_D = 512;
 constexpr int B5_GROUP = 4;  // warpgroups (64-sample tiles) per block
 constexpr int B5_NT = 128 * B5_GROUP;
 constexpr int B5_STAGES = 4;
+constexpr int B6_GROUP = 2;  // warpgroups (64-sample tiles) per block
+constexpr int B6_NT = 128 * B6_GROUP;
+constexpr int B6_STAGES = 3;
 
 __host__ __device__ inline int ceil_div(int a, int b) {
   return (a + b - 1) / b;
@@ -276,74 +290,236 @@ __global__ void large_lse_kernel(const float* __restrict__ comp,
   model[n] = s > 0.f ? m + logf(s) : -INFINITY;
 }
 
-// B6: grads for one (slab of 64 dimensions, sample tile), over every k.
-__global__ void __launch_bounds__(NT)
-large_grad_kernel(const float* __restrict__ lam,
-                  const float* __restrict__ means,
-                  const float* __restrict__ logw,
-                  const float* __restrict__ comp,
-                  const float* __restrict__ model,
-                  const float* __restrict__ xs, float* __restrict__ grads,
-                  int K, int N, int D) {
-  // s_a[e][d] = Lambda[e0 + e][d0 + d], s_b[e][n] = r(n) (x[n][e0 + e] -
-  // mu[e0 + e]); at the end the whole buffer holds the output tile
-  __shared__ __align__(16) float s_ab[2 * TK * S];
-  __shared__ float s_r[T];
-  float* s_a = s_ab;
-  float* s_b = s_ab + TK * S;
-  const int n0 = blockIdx.x * T, d0 = blockIdx.y * T;
-  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+struct B6Stage {
+  float x[B6_GROUP][tf32x3::SLAB];  // A slabs: the block's samples, e0..
+  float bh[tf32x3::SLAB];           // B slab of Lambda_k's TF32 halves:
+  float bl[tf32x3::SLAB];           // steps e0.., columns d0..
+  float r[B6_GROUP * tf32x3::TILE];  // r_k on the block's samples
+  float mu[tf32x3::KS];              // mu_k on e0..
+};
 
-  float acc[8][8];
-  simt::zero(acc);
-  for (int k = 0; k < K; ++k) {
-    const float lw = logw[k];
-    if (!(lw > -INFINITY)) continue;  // uniform over the block
-    float r = 0.f;
-    const int n = n0 + tid;  // NT == T: one sample per thread
-    if (n < N) {
-      const float md = model[n];
-      if (md > -INFINITY) r = expf(comp[(size_t)k * N + n] + lw - md);
+struct B6Layout {
+  int DT, JS, NTp, G;
+  size_t b_floats, x_floats, r_floats, mu_floats, bytes, smem;
+};
+
+B6Layout b6_layout(int K, int N, int D) {
+  B6Layout l;
+  l.DT = ceil_div(D, tf32x3::TILE);
+  l.JS = ceil_div(D, tf32x3::KS);
+  l.NTp = ceil_div(N > 0 ? N : 1, tf32x3::TILE * B6_GROUP) * B6_GROUP;
+  l.G = l.NTp / B6_GROUP;
+  l.b_floats = (size_t)K * l.DT * l.JS * tf32x3::SLAB;
+  l.x_floats = (size_t)l.JS * l.NTp * tf32x3::SLAB;
+  l.r_floats = (size_t)K * l.NTp * tf32x3::TILE;
+  l.mu_floats = (size_t)K * l.JS * tf32x3::KS;
+  l.bytes = (2 * l.b_floats + l.x_floats + l.r_floats + l.mu_floats) *
+                sizeof(float) +
+            ((size_t)K * l.NTp + l.G) * sizeof(int);
+  l.smem = B6_STAGES * sizeof(B6Stage);
+  return l;
+}
+
+// B6 pre-pass 1: r [K][NTp][64] (zeros past N, for a masked component and
+// where the mixture is -inf), live[k][tile] = some r of the tile is
+// nonzero, and (by the first tile's blocks) mu [K][JS * 32], zeros past D.
+__global__ void grad_resp_kernel(const float* __restrict__ means,
+                                 const float* __restrict__ logw,
+                                 const float* __restrict__ comp,
+                                 const float* __restrict__ model,
+                                 float* __restrict__ rp,
+                                 float* __restrict__ mup,
+                                 int* __restrict__ live, int N, int D, int JS,
+                                 int NTp) {
+  const int tile = blockIdx.x, k = blockIdx.y, tid = threadIdx.x;
+  const int n = tile * tf32x3::TILE + tid;
+  const float lw = logw[k];
+  float r = 0.f;
+  if (n < N && lw > -INFINITY) {
+    const float md = model[n];
+    if (md > -INFINITY) r = expf(comp[(size_t)k * N + n] + lw - md);
+  }
+  rp[((size_t)k * NTp + tile) * tf32x3::TILE + tid] = r;
+  const int any = __syncthreads_or(r != 0.f);
+  if (tid == 0) live[(size_t)k * NTp + tile] = any;
+  if (tile == 0)
+    for (int j = tid; j < JS * tf32x3::KS; j += blockDim.x)
+      mup[(size_t)k * JS * tf32x3::KS + j] =
+          j < D ? means[(size_t)k * D + j] : 0.f;
+}
+
+// B6 pre-pass 2: bh, bl [K][DT][JS][slab image], the TF32 halves of
+// Lambda_k as B slabs (columns d, steps e; zeros past D), for the
+// components with a live tile only (the others are never read).
+__global__ void grad_split_kernel(const float* __restrict__ lam,
+                                  const int* __restrict__ live,
+                                  float* __restrict__ bh,
+                                  float* __restrict__ bl, int D, int DT,
+                                  int JS, int NTp) {
+  using tf32x3::KS;
+  using tf32x3::TILE;
+  const int dt = blockIdx.x / JS, js = blockIdx.x % JS, k = blockIdx.y;
+  bool any = false;
+  for (int t = threadIdx.x; t < NTp; t += blockDim.x)
+    any |= live[(size_t)k * NTp + t] != 0;
+  if (!__syncthreads_or(any)) return;
+  const float* L = lam + (size_t)k * D * D;
+  const size_t o = (((size_t)k * DT + dt) * JS + js) * tf32x3::SLAB;
+  for (int idx = threadIdx.x; idx < tf32x3::SLAB; idx += blockDim.x) {
+    // image position idx (writes in order) of column d, step e; Lambda is
+    // symmetric, so (e, d) is read as (d, e), four steps contiguous
+    const int d = dt * TILE + (idx / 4) % TILE;
+    const int e = js * KS + (idx / (TILE * 4)) * 4 + (idx & 3);
+    uint32_t hi, lo;
+    tf32x3::split(d < D && e < D ? L[(size_t)d * D + e] : 0.f, hi, lo);
+    bh[o + idx] = __uint_as_float(hi);
+    bl[o + idx] = __uint_as_float(lo);
+  }
+}
+
+// true where some flag of the block's GROUP tiles of group g is set
+__device__ __forceinline__ bool group_live(const int* __restrict__ live,
+                                           int k, int g, int NTp) {
+  const int* f = live + (size_t)k * NTp + g * B6_GROUP;
+  int any = 0;
+#pragma unroll
+  for (int t = 0; t < B6_GROUP; ++t) any |= f[t];
+  return any != 0;
+}
+
+// B6 pre-pass 3: order[i], the sample groups by decreasing work (the
+// components live on a group; ties by index), so that the main pass's
+// blocks, which the card starts in index order, hand out the longest
+// first.  Every block counts all G groups' work into shared memory, then
+// ranks its own groups.
+__global__ void grad_order_kernel(const int* __restrict__ live,
+                                  int* __restrict__ order, int K, int NTp,
+                                  int G) {
+  extern __shared__ int work[];
+  for (int h = threadIdx.x; h < G; h += blockDim.x) {
+    int w = 0;
+    for (int k = 0; k < K; ++k) w += group_live(live, k, h, NTp);
+    work[h] = w;
+  }
+  __syncthreads();
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const int w = work[g];
+  int rank = 0;
+  for (int h = 0; h < G; ++h) {
+    const int v = work[h];
+    rank += v > w || (v == w && h < g);
+  }
+  order[rank] = g;
+}
+
+// B6 main pass: grads for one (256 samples, 64 columns) over the
+// components live on the block's samples, on the tensor cores, each
+// warpgroup 64 of the samples.
+__global__ void __launch_bounds__(B6_NT, 1)
+large_grad_kernel(const float* __restrict__ bh, const float* __restrict__ bl,
+                  const float* __restrict__ xt, const float* __restrict__ rp,
+                  const float* __restrict__ mup,
+                  const int* __restrict__ live,
+                  const int* __restrict__ order, float* __restrict__ grads,
+                  int K, int N, int D, int DT, int JS, int NTp) {
+  using tf32x3::KS;
+  using tf32x3::SLAB;
+  using tf32x3::SLAB_BYTES;
+  using tf32x3::TILE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  B6Stage* st = reinterpret_cast<B6Stage*>(smem);
+  __shared__ __align__(8) uint64_t full[B6_STAGES];
+  __shared__ int s_k[B6_STAGES];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int g = order[blockIdx.x / DT], dt = blockIdx.x % DT;
+  const int tile = g * B6_GROUP + wg;  // this warpgroup's samples
+
+  auto block_live = [&](int k) { return group_live(live, k, g, NTp); };
+  int nk = 0;  // the components the block visits
+  for (int base = 0; base < K; base += B6_NT)
+    nk += __syncthreads_count(base + tid < K && block_live(base + tid));
+  const int count = nk * JS;
+
+  if (tid == 0) {
+    for (int s = 0; s < B6_STAGES; ++s) tf32x3::mbar_init(&full[s], 1);
+    tf32x3::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the producer (thread 0): its cursor over (live component, slab)
+  int pk = 0, pj = 0;
+  auto issue = [&](int stage) {
+    if (pj == 0)
+      while (pk < K && !block_live(pk)) ++pk;
+    if (pk >= K) return;
+    B6Stage& s = st[stage];
+    s_k[stage] = pk;
+    tf32x3::mbar_expect(&full[stage], (B6_GROUP + 2) * SLAB_BYTES +
+                                          (B6_GROUP * TILE + KS) * 4);
+    tf32x3::bulk_copy(s.x[0],
+                      xt + ((size_t)pj * NTp + g * B6_GROUP) * SLAB,
+                      B6_GROUP * SLAB_BYTES, &full[stage]);
+    const size_t o = (((size_t)pk * DT + dt) * JS + pj) * SLAB;
+    tf32x3::bulk_copy(s.bh, bh + o, SLAB_BYTES, &full[stage]);
+    tf32x3::bulk_copy(s.bl, bl + o, SLAB_BYTES, &full[stage]);
+    tf32x3::bulk_copy(s.r, rp + ((size_t)pk * NTp + g * B6_GROUP) * TILE,
+                      B6_GROUP * TILE * 4, &full[stage]);
+    tf32x3::bulk_copy(s.mu, mup + ((size_t)pk * JS + pj) * KS, KS * 4,
+                      &full[stage]);
+    if (++pj == JS) {
+      pj = 0;
+      ++pk;
     }
-    s_r[tid] = r;
-    // (also publishes s_r; the previous component's reads ended at the last
-    // barrier of its slab loop) nothing of k on this tile: skip it
-    if (!__syncthreads_or(r != 0.f)) continue;
-    const float* lk = lam + (size_t)k * D * D;
-    const float* mu = means + (size_t)k * D;
-    for (int e0 = 0; e0 < D; e0 += TK) {
-      for (int idx = tid; idx < TK * T; idx += NT) {
-        // Lambda is symmetric: row e0 + e read along d (coalesced)
-        const int e = idx / T, d = idx % T;
-        const int ge = e0 + e, gd = d0 + d;
-        s_a[e * S + d] = (ge < D && gd < D) ? lk[(size_t)ge * D + gd] : 0.f;
-        // the samples read along e (coalesced)
-        const int sn = idx / TK, se = idx % TK;
-        const int gse = e0 + se;
-        s_b[se * S + sn] = (gse < D && n0 + sn < N)
-                               ? s_r[sn] * (xs[(size_t)(n0 + sn) * D + gse] -
-                                            mu[gse])
-                               : 0.f;
-      }
-      __syncthreads();
-      simt::slab_fma(s_a, s_b, acc, ty, tx);
-      __syncthreads();
+  };
+
+  const int lane = tid & 31, r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);
+  float tot[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tot[i] = 0.f;
+  if (tid == 0)
+    for (int s = 0; s < B6_STAGES - 1; ++s) issue(s);
+  for (int s = 0; s < count; ++s) {
+    // every thread is done with the previous slab's stage: refill it
+    __syncthreads();
+    if (tid == 0) {
+      tf32x3::fence_async_smem();
+      issue((s + B6_STAGES - 1) % B6_STAGES);
     }
+    const int stage = s % B6_STAGES;
+    tf32x3::mbar_wait(&full[stage], (s / B6_STAGES) & 1);
+    const B6Stage& cur = st[stage];
+    // uniform over the warpgroup
+    if (!live[(size_t)s_k[stage] * NTp + tile]) continue;
+    const float* mu = cur.mu;
+    float av[KS / 8][4];
+    tf32x3::load_a(cur.x[wg], av, [&](float v, int c) { return v - mu[c]; });
+    // rows r0 and r0 + 8 of the fragment: fold in their r
+    const float ra = cur.r[wg * TILE + r0], rb = cur.r[wg * TILE + r0 + 8];
+#pragma unroll
+    for (int j = 0; j < KS / 8; ++j) {
+      av[j][0] *= ra;
+      av[j][1] *= rb;
+      av[j][2] *= ra;
+      av[j][3] *= rb;
+    }
+    tf32x3::slab_product(acc, av, cur.bh, cur.bl);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[i] += acc[i];
   }
 
-  // transpose through shared memory so that rows of grads are written
-  // along d (coalesced)
-  float* s_out = s_ab;  // [T][S]
+  // d[4c + 0..1] at row r0, d[4c + 2..3] at row r0 + 8, columns 8c + 2 tig
+  const int d0 = dt * TILE;
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int c = 0; c < TILE / 8; ++c) {
+    const int d = d0 + 8 * c + 2 * (lane & 3);
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      s_out[simt::sub(tx, c) * S + simt::sub(ty, r)] = -acc[r][c];
-  __syncthreads();
-  for (int idx = tid; idx < T * T; idx += NT) {
-    const int n = idx / T, d = idx % T;
-    if (n0 + n < N && d0 + d < D)
-      grads[(size_t)(n0 + n) * D + d0 + d] = s_out[n * S + d];
+    for (int h = 0; h < 2; ++h) {
+      const int n = tile * TILE + r0 + 8 * h;
+      if (n >= N) continue;
+      if (d < D) grads[(size_t)n * D + d] = -tot[4 * c + 2 * h];
+      if (d + 1 < D) grads[(size_t)n * D + d + 1] = -tot[4 * c + 2 * h + 1];
+    }
   }
 }
 
@@ -391,19 +567,53 @@ extern "C" int gmmvi_densities_large(const float* means,
   return (int)cudaGetLastError();
 }
 
-// grads [N, D] from lam [K, D, D] (symmetric precisions), means [K, D],
+// Bytes of scratch gmmvi_density_grads_large needs for these sizes.
+extern "C" size_t gmmvi_density_grads_large_workspace(int K, int N, int D) {
+  return b6_layout(K, N, D).bytes;
+}
+
+// grads [N, D] from lam [K, D, D] (precisions, symmetric up to rounding:
+// row d is read as column d), means [K, D],
 // logw [K], comp [K, N] and model [N] (B5's outputs) and x [N, D]; all
-// float32, contiguous, on the current device.  1 <= D <= 512, K >= 1.
+// float32, contiguous, on the current device; ws of
+// gmmvi_density_grads_large_workspace bytes (16-byte aligned).
+// 1 <= D <= 512, 1 <= K <= 65,535, N <= 7,438,336 (the order pre-pass
+// holds one count per 128-sample group in 227 KB of shared memory).
 extern "C" int gmmvi_density_grads_large(const float* lam, const float* means,
                                          const float* logw, const float* comp,
                                          const float* model, const float* x,
-                                         float* grads, int K, int N, int D,
-                                         void* stream) {
-  if (K < 1 || D < 1 || D > MAX_D || N < 0) return (int)cudaErrorInvalidValue;
+                                         float* grads, void* ws, int K, int N,
+                                         int D, void* stream) {
+  // K rides the pre-passes' grid y axis (at most 65,535 blocks)
+  if (K < 1 || K > 65535 || D < 1 || D > MAX_D || N < 0)
+    return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + T - 1) / T, (D + T - 1) / T);
-  large_grad_kernel<<<grid, NT, 0, st>>>(lam, means, logw, comp, model, x,
-                                         grads, K, N, D);
+  const B6Layout l = b6_layout(K, N, D);
+  float* bh = static_cast<float*>(ws);
+  float* bl = bh + l.b_floats;
+  float* xt = bl + l.b_floats;
+  float* rp = xt + l.x_floats;
+  float* mup = rp + l.r_floats;
+  int* live = reinterpret_cast<int*>(mup + l.mu_floats);
+  int* order = live + (size_t)K * l.NTp;
+  grad_resp_kernel<<<dim3(l.NTp, K), tf32x3::TILE, 0, st>>>(
+      means, logw, comp, model, rp, mup, live, N, D, l.JS, l.NTp);
+  large_xtiles_kernel<<<dim3(l.NTp, l.JS), 256, 0, st>>>(x, xt, N, D, l.NTp);
+  grad_split_kernel<<<dim3(l.DT * l.JS, K), 256, 0, st>>>(
+      lam, live, bh, bl, D, l.DT, l.JS, l.NTp);
+  const int order_smem = l.G * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      grad_order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      order_smem);
+  if (err != cudaSuccess) return (int)err;
+  grad_order_kernel<<<ceil_div(l.G, 128), 128, order_smem, st>>>(
+      live, order, K, l.NTp, l.G);
+  err = cudaFuncSetAttribute(
+      large_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)l.smem);
+  if (err != cudaSuccess) return (int)err;
+  large_grad_kernel<<<l.G * l.DT, B6_NT, l.smem, st>>>(
+      bh, bl, xt, rp, mup, live, order, grads, K, N, D, l.DT, l.JS, l.NTp);
   return (int)cudaGetLastError();
 }

@@ -32,9 +32,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> launches on CUDA tensors since the last reset
 LAUNCHES: Dict[str, int] = {"density_pack": 0, "densities": 0, "tr_kl": 0,
-                             "background_logpdf": 0, "more_grams": 0,
-                             "densities_large": 0, "density_grads_large": 0,
-                             "stein_smom": 0, "mixture_logpdf": 0}
+                             "tr_search": 0, "background_logpdf": 0,
+                             "more_grams": 0, "densities_large": 0,
+                             "density_grads_large": 0, "stein_smom": 0,
+                             "mixture_logpdf": 0}
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -50,6 +51,9 @@ _SIGNATURES = {
         # etas, prec, rq, lin, rlin, old_inv_chols, means, klconst, kl, K, D,
         # stream
         "gmmvi_tr_kl": [_c_ptr] * 9 + [_c_int] * 2 + [_c_ptr],
+        # prec, rq, lin, rlin, old_inv_chols, means, klconst, kl_bound,
+        # lower0, upper0, active, exp_lower, exp_upper, trips, K, D, stream
+        "gmmvi_tr_search": [_c_ptr] * 14 + [_c_int] * 2 + [_c_ptr],
     },
     "background.cu": {
         # U, N, D
@@ -71,8 +75,10 @@ _SIGNATURES = {
         # means, inv_chols, logw, logdets, x, comp, model, ws, K, N, D,
         # skip_masked, stream
         "gmmvi_densities_large": [_c_ptr] * 8 + [_c_int] * 4 + [_c_ptr],
-        # lam, means, logw, comp, model, x, grads, K, N, D, stream
-        "gmmvi_density_grads_large": [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr],
+        # K, N, D
+        "gmmvi_density_grads_large_workspace": [_c_int] * 3,
+        # lam, means, logw, comp, model, x, grads, ws, K, N, D, stream
+        "gmmvi_density_grads_large": [_c_ptr] * 8 + [_c_int] * 3 + [_c_ptr],
     },
     "stein.cu": {
         # K, N, D

@@ -19,13 +19,15 @@ K, over a padded mixture (``means [K, D]``, lower-triangular
   background over the distribution ring (``ops/background.py`` at D > 128);
 * :func:`density_grads_large` (B6): ``grads [N, D] = -sum_k r_k(x)
   Lambda_k (x - mu_k)`` with ``r_k = exp(comp_k + log_weights_k - model)``
-  from B5's outputs;
+  from B5's outputs, over the (component, 64-sample tile) pairs where
+  some ``r_k`` is nonzero only;
 * :func:`density_pack_large`: B5 then B6, ``(comp, model, grads)``.
 
 B6 takes ``Lambda_k = L_k^{-T} L_k^{-1}`` formed once per call outside the
 kernel, as the JAX package forms its precision rows in ``_pack``; here in
 float64, rounded once to float32, so the precisions carry no error of a
 float32 product that cancellation in ``Lambda_k (x - mu_k)`` would magnify.
+The kernel reads ``Lambda_k[d, e]`` for ``Lambda_k[e, d]``.
 
 On a CPU tensor the wrappers run the plain PyTorch versions below; on a
 CUDA tensor they launch the kernel or raise.
@@ -80,11 +82,10 @@ def density_pack_large_plain(means, inv_chols, log_weights, log_dets, samples
 
 
 def precisions(inv_chols: torch.Tensor) -> torch.Tensor:
-    """``Lambda_k = L_k^{-T} L_k^{-1}`` ``[K, D, D]``, formed in float64,
-    symmetrized and rounded once to float32 (exactly symmetric)."""
+    """``Lambda_k = L_k^{-T} L_k^{-1}`` ``[K, D, D]``, formed in float64 and
+    rounded once to float32 (symmetric up to that rounding)."""
     l64 = inv_chols.to(torch.float64)
-    lam = l64.mT @ l64
-    return (0.5 * (lam + lam.mT)).to(torch.float32).contiguous()
+    return (l64.mT @ l64).to(torch.float32)
 
 
 def _densities(means, inv_chols, log_weights, log_dets, samples,
@@ -148,9 +149,12 @@ def density_grads_large(means, inv_chols, log_weights, comp, model, samples
                                          model, samples)
     lam = precisions(inv_chols)
     grads = torch.empty((n, d), dtype=torch.float32, device=samples.device)
-    rc = cuda.library("density_large.cu").gmmvi_density_grads_large(
+    lib = cuda.library("density_large.cu")
+    ws = cuda.workspace(lib, "gmmvi_density_grads_large", samples.device, k,
+                        n, d)
+    rc = lib.gmmvi_density_grads_large(
         *[t.data_ptr() for t in (lam, means, log_weights, comp, model,
-                                 samples, grads)],
+                                 samples, grads, ws)],
         k, n, d, cuda.stream_ptr(samples.device))
     cuda.check(rc, "density_grads_large")
     cuda.LAUNCHES["density_grads_large"] += 1

@@ -1,7 +1,10 @@
-"""Batched trust-region KL evaluation: kernel B3.
+"""Batched trust-region KL evaluation and the bracket search over it:
+kernel B3.
 
-(JAX counterpart: gmmvi_tpu/ops/pallas_trust_region.py ``_tr_kl_kernel``;
-CUDA source: gmmvi_tpu_torch/csrc/trust_region.cu)
+(JAX counterpart: gmmvi_tpu/ops/pallas_trust_region.py ``_tr_kl_kernel``
+and, for the search, gmmvi_tpu/optimization/component_updaters.py
+``_bracketing_search_batched``; CUDA source:
+gmmvi_tpu_torch/csrc/trust_region.cu)
 
 For every component k at its own stepsize eta_k, with the interpolated
 canonical parameters
@@ -18,12 +21,18 @@ with L_k = chol(P_k), O_k the old inverse Cholesky factor and kl_const_k =
 log|Sigma_old_k| - D.  Components with eta_k <= 0 or a non-positive-definite
 P_k get F32_MAX, the rejection signal the bracket search expects.
 
-On a CPU tensor :func:`tr_kl` runs the plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises.  D <= 64.
+:func:`tr_search` runs the reference's log-space bisection for every
+component's stepsize to its end (:func:`bracket_search` around the KL), in
+one launch on the card: one block per component, since a component's
+bracket depends on its own KL alone.
+
+On a CPU tensor :func:`tr_kl` and :func:`tr_search` run their plain
+PyTorch versions; on a CUDA tensor they launch their kernels or raise.
+D <= 64.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -31,6 +40,7 @@ from gmmvi_tpu_torch.ops import cuda
 from gmmvi_tpu_torch.ops.stable import F32_MAX
 
 MAX_D = 64
+MAX_TRIPS = 1000
 
 
 class TrKlInputs(NamedTuple):
@@ -59,15 +69,17 @@ def prepare_tr_kl_inputs(means, chols, inv_chols, reward_lin, reward_quad
         old_logdet - d)])
 
 
-def _check(etas: torch.Tensor, inp: TrKlInputs):
+def _check(inp: TrKlInputs, **per_component: torch.Tensor):
+    """``inp`` and the [K] tensors ``per_component`` (by name; the first
+    one's device is the call's)."""
     k, d = inp.means.shape
     shapes = {"prec": (k, d, d), "reward_quad": (k, d, d), "lin": (k, d),
               "reward_lin": (k, d), "old_inv_chols": (k, d, d),
               "means": (k, d), "kl_const": (k,)}
     cuda.check_tensors(
-        {"etas": (etas, (k,)),
+        {**{name: (t, (k,)) for name, t in per_component.items()},
          **{name: (t, shapes[name]) for name, t in zip(inp._fields, inp)}},
-        etas.device)
+        next(iter(per_component.values())).device)
     if d > MAX_D:
         raise NotImplementedError(
             f"the trust-region KL kernel takes D <= {MAX_D} (got {d})")
@@ -97,7 +109,7 @@ def tr_kl_plain(etas: torch.Tensor, inp: TrKlInputs) -> torch.Tensor:
 
 def tr_kl(etas: torch.Tensor, inp: TrKlInputs) -> torch.Tensor:
     """B3: KL(new_k(eta_k) || old_k) for all K components in one call."""
-    _check(etas, inp)
+    _check(inp, etas=etas)
     if etas.device.type == "cpu":
         return tr_kl_plain(etas, inp)
     k, d = inp.means.shape
@@ -109,3 +121,97 @@ def tr_kl(etas: torch.Tensor, inp: TrKlInputs) -> torch.Tensor:
     cuda.check(rc, "tr_kl")
     cuda.LAUNCHES["tr_kl"] += 1
     return kl
+
+
+def bracket_search(kl_eval: Callable, kl_bound, lower0, upper0,
+                   active: Optional[torch.Tensor] = None,
+                   per_component_trips: bool = False):
+    """The reference's log-space bisection for the largest stepsize within
+    the KL bound, for all components in lockstep on the host: per trip, one
+    ``kl_eval`` of etas [K] -> KLs [K], then masked bracket updates.  A
+    component stops when the bracket (in eta space) is narrower than 0.1 or
+    |KL - bound| < 0.1 bound; the loop stops when all have, at most 1000
+    trips, reading one "all done" flag per trip.  Returns ``(exp(lower),
+    exp(upper), trips)``, ``trips`` the loop's trips (an int) or, with
+    ``per_component_trips``, the trips each component took before it
+    stopped ([K] int32, one more device op per trip): what a loop per
+    component would count, since a component's bracket depends on its own
+    KL alone."""
+    k = lower0.shape[0]
+    dev = lower0.device
+    lower, upper = lower0, upper0
+    upper_ok = torch.zeros((k,), dtype=torch.bool, device=dev)
+    done = (torch.zeros((k,), dtype=torch.bool, device=dev)
+            if active is None else torch.logical_not(active))
+    trips = 0
+    each = (torch.zeros((k,), dtype=torch.int32, device=dev)
+            if per_component_trips else None)
+    while trips < MAX_TRIPS and not bool(done.all()):
+        act = torch.logical_not(done)
+        if per_component_trips:
+            each += act
+        eta = 0.5 * (lower + upper)
+        kl = kl_eval(torch.exp(eta))
+        diff = torch.minimum(torch.exp(upper) - torch.exp(eta),
+                             torch.exp(eta) - torch.exp(lower))
+        stop_width = diff < 1e-1
+        good = torch.abs(kl_bound - kl) < 1e-1 * kl_bound
+        go_low = kl_bound > kl
+        new_lower = torch.where(
+            stop_width, lower,
+            torch.where(good, eta, torch.where(go_low, lower, eta)))
+        new_upper = torch.where(
+            stop_width, upper,
+            torch.where(good, eta, torch.where(go_low, eta, upper)))
+        new_upper_ok = torch.where(
+            ~stop_width & ~good, upper_ok | go_low, upper_ok)
+        lower = torch.where(act, new_lower, lower)
+        upper = torch.where(act, new_upper, upper)
+        upper_ok = torch.where(act, new_upper_ok, upper_ok)
+        done = torch.where(act, stop_width | good, done)
+        trips += 1
+    lower = torch.where(upper_ok, upper, lower)
+    return (torch.exp(lower), torch.exp(upper),
+            each if per_component_trips else trips)
+
+
+def _check_search(inp: TrKlInputs, kl_bound, lower0, upper0, active):
+    k = inp.means.shape[0]
+    _check(inp, kl_bound=kl_bound, lower0=lower0, upper0=upper0)
+    if (active.shape != (k,) or active.dtype != torch.bool
+            or active.device != kl_bound.device
+            or not active.is_contiguous()):
+        raise ValueError(f"active: a contiguous bool [{k}] on "
+                         f"{kl_bound.device} (got {active.dtype} "
+                         f"{tuple(active.shape)} on {active.device})")
+
+
+def tr_search_plain(inp: TrKlInputs, kl_bound, lower0, upper0, active):
+    """Plain PyTorch version of the fused search: :func:`bracket_search`
+    around :func:`tr_kl_plain`, counting each component's trips."""
+    return bracket_search(lambda etas: tr_kl_plain(etas, inp), kl_bound,
+                          lower0, upper0, active, per_component_trips=True)
+
+
+def tr_search(inp: TrKlInputs, kl_bound: torch.Tensor, lower0: torch.Tensor,
+              upper0: torch.Tensor, active: torch.Tensor):
+    """B3, fused: every active component's bracket search from ``[lower0,
+    upper0]`` (log space) against ``kl_bound`` [K], in one launch.  Returns
+    ``(exp(lower), exp(upper), trips)`` as :func:`bracket_search` around
+    :func:`tr_kl` with ``per_component_trips`` does, to the bit."""
+    _check_search(inp, kl_bound, lower0, upper0, active)
+    if kl_bound.device.type == "cpu":
+        return tr_search_plain(inp, kl_bound, lower0, upper0, active)
+    k, d = inp.means.shape
+    opts = dict(dtype=torch.float32, device=kl_bound.device)
+    exp_lower = torch.empty((k,), **opts)
+    exp_upper = torch.empty((k,), **opts)
+    trips = torch.empty((k,), dtype=torch.int32, device=kl_bound.device)
+    lib = cuda.library("trust_region.cu")
+    rc = lib.gmmvi_tr_search(
+        *[t.data_ptr() for t in (*inp, kl_bound, lower0, upper0, active,
+                                 exp_lower, exp_upper, trips)],
+        k, d, cuda.stream_ptr(kl_bound.device))
+    cuda.check(rc, "tr_search")
+    cuda.LAUNCHES["tr_search"] += 1
+    return exp_lower, exp_upper, trips

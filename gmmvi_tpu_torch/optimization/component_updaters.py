@@ -4,21 +4,23 @@
 full-covariance bracket path ``_trust_region_update_pallas``)
 
 Every component's stepsize eta is found by the reference's log-space
-bisection, run in lockstep over the padded component axis.  Each trip
-evaluates KL(new_k(eta_k) || old_k) for all components in one call: for
-D <= 64 of :func:`gmmvi_tpu_torch.ops.trust_region.tr_kl` (kernel B3 on the
-card), above it of the JAX package's whitened form in plain torch (the JAX
-package keeps that one in XLA: ``_tr_whitened_precompute`` and
+bisection.  For D <= 64 the whole search is one call of
+:func:`gmmvi_tpu_torch.ops.trust_region.tr_search` (kernel B3 on the card,
+one block per component running its own bracket to its end, no host
+sync).  Above 64 the search runs as a host loop
+(:func:`~gmmvi_tpu_torch.ops.trust_region.bracket_search`) in lockstep
+over the padded component axis, one "all done" flag read per trip, each
+trip one evaluation of the JAX package's whitened KL in plain torch (the
+JAX package keeps that one in XLA: ``_tr_whitened_precompute`` and
 ``_tr_kl_whitened_trip``, selected where its kernel's envelope ends).  The
-loop itself runs on the host and reads one "all done" flag per trip, which
-is one device-to-host sync per trip.  The accepted update is rebuilt at the
-found eta from one Cholesky of the flipped precision.  Failures are success
-masks: a failed component keeps its parameters.  The direct and iBLR
-updaters and the other searches are not ported yet.
+accepted update is rebuilt at the found eta from one Cholesky of the
+flipped precision.  Failures are success masks: a failed component keeps
+its parameters.  The direct and iBLR updaters and the other searches are
+not ported yet.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -27,9 +29,8 @@ from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.ops.blocked_linalg import tril_inverse
 from gmmvi_tpu_torch.ops.stable import F32_MAX
 from gmmvi_tpu_torch.ops.trust_region import MAX_D as TR_KERNEL_MAX_D
-from gmmvi_tpu_torch.ops.trust_region import prepare_tr_kl_inputs, tr_kl
-
-MAX_TRIPS = 1000
+from gmmvi_tpu_torch.ops.trust_region import (bracket_search,
+                                              prepare_tr_kl_inputs, tr_search)
 
 
 class ComponentUpdateResult(NamedTuple):
@@ -145,47 +146,6 @@ def _tr_kl_whitened(etas, m_w, c, b1) -> torch.Tensor:
     return torch.where(bad, F32_MAX, kl)
 
 
-def _bracketing_search_batched(kl_eval: Callable, kl_bound, lower0, upper0,
-                               active: Optional[torch.Tensor] = None):
-    """The reference's log-space bisection for the largest stepsize within
-    the KL bound, for all components in lockstep: per trip, one ``kl_eval``
-    of etas [K] -> KLs [K], then masked bracket updates.  A component stops
-    when the bracket (in eta space) is narrower than 0.1 or |KL - bound| <
-    0.1 bound; the loop stops when all have, at most 1000 trips.  Returns
-    ``(exp(lower), exp(upper), trips)``."""
-    k = lower0.shape[0]
-    dev = lower0.device
-    lower, upper = lower0, upper0
-    upper_ok = torch.zeros((k,), dtype=torch.bool, device=dev)
-    done = (torch.zeros((k,), dtype=torch.bool, device=dev)
-            if active is None else torch.logical_not(active))
-    trips = 0
-    while trips < MAX_TRIPS and not bool(done.all()):
-        act = torch.logical_not(done)
-        eta = 0.5 * (lower + upper)
-        kl = kl_eval(torch.exp(eta))
-        diff = torch.minimum(torch.exp(upper) - torch.exp(eta),
-                             torch.exp(eta) - torch.exp(lower))
-        stop_width = diff < 1e-1
-        good = torch.abs(kl_bound - kl) < 1e-1 * kl_bound
-        go_low = kl_bound > kl
-        new_lower = torch.where(
-            stop_width, lower,
-            torch.where(good, eta, torch.where(go_low, lower, eta)))
-        new_upper = torch.where(
-            stop_width, upper,
-            torch.where(good, eta, torch.where(go_low, eta, upper)))
-        new_upper_ok = torch.where(
-            ~stop_width & ~good, upper_ok | go_low, upper_ok)
-        lower = torch.where(act, new_lower, lower)
-        upper = torch.where(act, new_upper, upper)
-        upper_ok = torch.where(act, new_upper_ok, upper_ok)
-        done = torch.where(act, stop_width | good, done)
-        trips += 1
-    lower = torch.where(upper_ok, upper, lower)
-    return torch.exp(lower), torch.exp(upper), trips
-
-
 def trust_region_update(model: GmmState, meta: MetaState,
                         hessians_neg: torch.Tensor, grads_neg: torch.Tensor,
                         stepsizes: torch.Tensor, temperature: float = 1.0,
@@ -204,24 +164,21 @@ def trust_region_update(model: GmmState, meta: MetaState,
     reward_lin = torch.einsum("kij,kj->ki", reward_quad, means) - grads_neg
     inp = prepare_tr_kl_inputs(means, chols, inv_chols, reward_lin,
                                reward_quad)
-    if model.num_dimensions <= TR_KERNEL_MAX_D:
-        def kl_eval(etas):
-            return tr_kl(etas, inp)
-    else:
-        m_w, c, b1 = _tr_whitened_precompute(means, chols, inv_chols,
-                                             reward_lin, reward_quad)
-
-        def kl_eval(etas):
-            return _tr_kl_whitened(etas, m_w, c, b1)
-
     last = meta.last_etas
     no_warm = last < 0
     log_last = torch.log(torch.abs(last) + 1e-30)
     lower0 = torch.where(no_warm, -20.0, torch.clamp(log_last - 3.0,
                                                      min=0.0))
     upper0 = torch.where(no_warm, 80.0, log_last + 3.0)
-    exp_lower, exp_upper, _ = _bracketing_search_batched(
-        kl_eval, stepsizes, lower0, upper0, active=model.mask)
+    if model.num_dimensions <= TR_KERNEL_MAX_D:
+        exp_lower, exp_upper, _ = tr_search(inp, stepsizes, lower0, upper0,
+                                            model.mask)
+    else:
+        m_w, c, b1 = _tr_whitened_precompute(means, chols, inv_chols,
+                                             reward_lin, reward_quad)
+        exp_lower, exp_upper, _ = bracket_search(
+            lambda etas: _tr_kl_whitened(etas, m_w, c, b1), stepsizes,
+            lower0, upper0, active=model.mask)
     eta = torch.clamp(exp_lower, min=temperature)
     success = exp_lower == exp_upper
 

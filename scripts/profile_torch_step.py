@@ -101,13 +101,16 @@ def main() -> int:
 
     groups = {"density_kernel": "B1/B2 density_kernel",
               "tr_kl_kernel": "B3 tr_kl_kernel",
+              "tr_search_kernel": "B3 tr_search_kernel",
               "background_kernel": "B4/B9 background_kernel",
               "more_gram_kernel": "B8 more_gram_kernel",
               "large_comp_kernel": "B5 large_comp_kernel",
               "large_split_kernel": "B5 pre-passes",
-              "large_xtiles_kernel": "B5 pre-passes",
+              "large_xtiles_kernel": "B5/B6 sample slabs",
               "large_lse_kernel": "B5 large_lse_kernel",
               "large_grad_kernel": "B6 large_grad_kernel",
+              "grad_resp_kernel": "B6 pre-passes",
+              "grad_split_kernel": "B6 pre-passes",
               "stein_mma_kernel": "B7 stein_mma_kernel",
               "stein_tiles_kernel": "B7 pre-passes",
               "stein_weights_kernel": "B7 pre-passes"}

@@ -5,6 +5,8 @@ These tests need an NVIDIA card (Hopper, since the kernels build for
 sm_90a) and ``nvcc``; without them each skips.  On a machine with the card:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -87,6 +89,59 @@ def test_tr_kl_kernel_matches_plain(dev, k, d):
     big = want >= 3e38
     assert torch.equal(got >= 3e38, big)
     torch.testing.assert_close(got[~big], want[~big], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("d", [2, 20, 64])
+def test_tr_search_kernel_equals_host_loop(dev, d):
+    """B3's fused search (one launch) against the host loop around B3's
+    per-trip kernel on the same inputs: exp(lower), exp(upper) and each
+    component's trips equal to the bit, and on a second call; cold and
+    warm starts, KL bounds over three decades, infeasible small etas, a
+    bracket narrower than the width stop, inactive slots with NaN
+    rewards (as MORE leaves them), K = 48."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import trust_region as tops
+
+    k = 48
+    g = torch.Generator().manual_seed(100 + d)
+    means = torch.randn(k, d, generator=g) * 3
+    a = torch.randn(k, d, d, generator=g)
+    chols = torch.linalg.cholesky(a @ a.mT / d + 0.5 * torch.eye(d))
+    inv = torch.linalg.solve_triangular(chols, torch.eye(d).expand(k, d, d),
+                                        upper=False)
+    h = torch.randn(k, d, d, generator=g) * 0.3
+    rq = h @ h.mT - 0.5 * torch.eye(d)
+    rl = torch.randn(k, d, generator=g)
+    rq[-2:], rl[-2:] = torch.nan, torch.nan
+    inp = tops.prepare_tr_kl_inputs(*[t.to(dev) for t in (means, chols, inv,
+                                                          rl, rq)])
+    bound = 10.0 ** (torch.rand(k, generator=g) * 3 - 3)
+    log_last = torch.log(10.0 ** (torch.rand(k, generator=g) * 5 - 2))
+    cold = torch.arange(k) % 3 == 0
+    lower0 = torch.where(cold, -20.0, torch.clamp(log_last - 3.0, min=0.0))
+    upper0 = torch.where(cold, 80.0, log_last + 3.0)
+    lower0[1], upper0[1] = math.log(5.0), math.log(5.0) + 1e-3
+    active = torch.arange(k) < k - 2
+    args = (inp, *[t.to(dev).contiguous() for t in (bound, lower0, upper0,
+                                                     active)])
+    before = dict(cuda.LAUNCHES)
+    got = tops.tr_search(*args)
+    again = tops.tr_search(*args)
+    assert cuda.LAUNCHES["tr_search"] == before["tr_search"] + 2
+    loop = tops.bracket_search(lambda e: tops.tr_kl(e, inp), *args[1:],
+                               per_component_trips=True)
+    lockstep_trips = tops.bracket_search(lambda e: tops.tr_kl(e, inp),
+                                         *args[1:])[2]
+    torch.cuda.synchronize()
+    for a_, b_, c_ in zip(got, again, loop):
+        assert torch.equal(a_, b_)
+        assert torch.equal(a_, c_)
+    trips = got[2].cpu()
+    assert int(trips.max()) == lockstep_trips
+    assert trips[-2:].tolist() == [0, 0] and int(trips[1]) == 1
+    assert int(trips.max()) > 3
+    assert bool((got[0] == got[1]).any()) and not bool(
+        (got[0] == got[1]).all())
 
 
 @pytest.mark.parametrize("u,d,n,n_masked", [
@@ -320,7 +375,8 @@ def test_main_path_on_card_matches_cpu(dev, codename, dims):
         launches = dict(cuda.LAUNCHES)
     cpu, card = runs
     assert launches["density_pack"] == 5
-    assert launches["tr_kl"] >= 5
+    assert launches["tr_search"] == 5             # one search a step
+    assert launches["tr_kl"] == 0
     assert launches["mixture_logpdf"] == 1        # the add's candidates
     if codename == "ZAMTRUX":
         assert launches["densities"] == 10          # ESS pass + weights
@@ -633,6 +689,58 @@ def test_large_density_tf32x3_edge_shapes(dev, d):
     assert torch.isneginf(dl.mixture_logpdf_large(*half)).all()
 
 
+def _grads_mixture(k, d, n, sparse, seed):
+    """B6's inputs: a mixture of k components at D = d (the last masked,
+    the one before it without samples) and n samples drawn from the
+    others in random order, with B5's plain comp and model.  ``sparse``:
+    narrow components 30 apart, so that most responsibilities underflow to
+    zero and the live (component, 64-sample tile) pairs lie scattered, as
+    on stm300; else overlapping ones (every pair live)."""
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    g = torch.Generator().manual_seed(seed)
+    means = torch.randn(k, d, generator=g) * (30.0 if sparse else 0.3)
+    a = torch.randn(k, d, d, generator=g)
+    scale = 0.05 if sparse else 1.0
+    chols = torch.linalg.cholesky(scale * (a @ a.mT / d + torch.eye(d)))
+    inv = torch.linalg.solve_triangular(chols, torch.eye(d).expand(k, d, d),
+                                        upper=False).contiguous()
+    logw = torch.log_softmax(torch.randn(k, generator=g), 0)
+    logw[-1] = -torch.inf
+    logdets = torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)).sum(-1)
+    comp_of = torch.randint(0, k - 2, (n,), generator=g)
+    x = means[comp_of] + torch.einsum("nij,nj->ni", chols[comp_of],
+                                      torch.randn(n, d, generator=g))
+    comp, model = dl.densities_large_plain(means, inv, logw, logdets, x)
+    return [means, inv, logw, comp, model, x]
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("d", [65, 136, 300, 301, 512])
+def test_density_grads_tf32x3_dense_and_sparse(dev, d, sparse):
+    """B6 on the tensor cores (64-sample x 64-column tiles, 32-step slabs
+    over e, the live (component, tile) pairs only) at D on either side of
+    a tile's edge and N = 1,001: rtol / atol 2e-3 against the plain
+    version, equal bits on two calls; with dense responsibilities and with
+    sparse ones (most pairs dead, and a component without a live pair)."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    k, n = 7, 1001
+    args = [t.to(dev) for t in _grads_mixture(k, d, n, sparse, seed=d)]
+    before = cuda.LAUNCHES["density_grads_large"]
+    got = dl.density_grads_large(*args)
+    again = dl.density_grads_large(*args)
+    want = dl.density_grads_large_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["density_grads_large"] == before + 2
+    assert torch.equal(got, again)
+    resp = torch.exp(args[3] + args[2][:, None] - args[4][None, :])
+    live = float((resp > 0).double().mean())
+    assert (live < 0.5) if sparse else (live > 0.5)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("n,live", [(16384, 24), (2000, 10)])
 def test_mixture_logpdf_at_d300_takes_b5(dev, n, live):
     """B9's two call sizes on the stm300 path (40 slots at D = 300: the add
@@ -711,8 +819,8 @@ def test_large_d_path_on_card_matches_cpu(dev):
     assert launches["mixture_logpdf"] == 0
     assert launches["density_grads_large"] == 5
     assert launches["stein_smom"] == 5
-    for name in ("density_pack", "densities", "tr_kl", "background_logpdf",
-                 "more_grams"):
+    for name in ("density_pack", "densities", "tr_kl", "tr_search",
+                 "background_logpdf", "more_grams"):
         assert launches[name] == 0, name
     for name in ("model.num_active", "db.num_samples_written", "db.write_pos",
                  "db.sample_comp", "db.sample_iter", "db.res_count"):

@@ -1,4 +1,4 @@
-"""The split-TF32 arithmetic of kernels B5, B7 and B8 (csrc/tf32x3.cuh),
+"""The split-TF32 arithmetic of kernels B5-B8 (csrc/tf32x3.cuh),
 emulated in plain PyTorch on the CPU and held against float64.
 
 The kernels split a float32 a into hi = tf32(a) (round to nearest, ties
@@ -6,9 +6,10 @@ away from zero: ``cvt.rna.tf32.f32``) and lo = tf32(a - hi), take a
 product as hi hi' + hi lo' + lo hi' (each exact in float32: two 11-bit
 significands), sum a slab of 32 reduction steps in float32 and add each
 slab's sum into a float32 total.  The emulation below does the same; the
-tests show that at stm300's magnitudes both kernels stay inside their bars
+tests show that at stm300's magnitudes the kernels stay inside their bars
 against float64 with room to spare, and that one TF32 product (hi hi')
-would miss B7's bar and take most of B5's: the reason for the three.
+would miss B6's and B7's bars and take most of B5's: the reason for the
+three.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 SLAB = 32           # reduction steps per slab (tf32x3::KS)
 B5_RTOL, B5_ATOL = 2e-4, 2e-3
+B6_RTOL, B6_ATOL = 2e-3, 2e-3
 B7_BAR = 1e-5       # of each component's largest |entry|
 B8_BAR = 2e-5       # of each component's largest |entry|, on the card
 
@@ -126,6 +128,62 @@ def test_density_3xtf32_within_bar():
                                / (B5_ATOL + B5_RTOL * np.abs(truth)))
     assert worst[3] <= 0.1, worst
     assert worst[1] > 0.5, worst
+
+
+def test_density_grads_3xtf32_within_bar():
+    """B6's mixture gradient -sum_k (r_k o (X - mu_k)) Lambda_k emulated at
+    D = 40, N = 512 drawn from K = 4 far-apart narrow components (75% of
+    the responsibilities underflow to zero, the rest span many decades, as
+    on stm300), as the kernel takes it: mu subtracted and r folded into A
+    before the split, Lambda_k (float64, rounded once, not symmetrized)
+    split and read as B[e, d] = Lambda_k[d, e], a sum per 32-step slab added into one float32 total over the
+    components in order.  Against float64 over the same float32 inputs:
+    within a tenth of the bar (rtol and atol 2e-3; 8e-4 of it here); one
+    TF32 pass misses the bar (3.6 times it)."""
+    d, n, k = 40, 512, 4
+    rng = np.random.RandomState(5)
+    means = rng.randn(k, d) * 30.0
+    a = rng.randn(k, d, d)
+    chols = np.linalg.cholesky(0.01 * (a @ a.transpose(0, 2, 1) / d
+                                       + np.eye(d)))
+    inv = np.linalg.inv(chols)
+    comp = rng.randint(0, k, n)
+    x = means[comp] + np.einsum("nij,nj->ni", chols[comp], rng.randn(n, d))
+    z = np.einsum("kij,knj->kni", inv, x[None] - means[:, None])
+    log_comp = (-0.5 * (z ** 2).sum(-1)
+                - np.log(np.diagonal(chols, axis1=1, axis2=2)).sum(1)[:, None])
+    r = np.exp(log_comp - np.logaddexp.reduce(log_comp, axis=0)).astype(
+        np.float32)
+    assert 0.7 < (r == 0).mean() < 0.8
+    # as precisions() forms it: L^T L in float64 from the float32 factor,
+    # rounded once, not symmetrized
+    inv32 = inv.astype(np.float32).astype(np.float64)
+    lam = np.einsum("kji,kjl->kil", inv32, inv32).astype(np.float32)
+    x32, mu32 = x.astype(np.float32), means.astype(np.float32)
+    truth = -np.einsum("kn,kde,kne->nd", r.astype(np.float64),
+                       lam.astype(np.float64),
+                       x32[None].astype(np.float64)
+                       - mu32[:, None].astype(np.float64))
+    worst = {}
+    for passes in (3, 1):
+        total = torch.zeros(n, d, dtype=torch.float32)
+        for kk in range(k):
+            ah, al = split(torch.as_tensor(r[kk])[:, None]
+                           * (torch.as_tensor(x32) - torch.as_tensor(
+                               mu32[kk])))
+            # B at (step e, column d) is Lambda[d, e], as the kernel reads
+            bh, bl = split(torch.as_tensor(lam[kk]).T.contiguous())
+            for s in range(0, d, SLAB):
+                sl = slice(s, s + SLAB)
+                part = ah[:, sl] @ bh[sl]
+                if passes == 3:
+                    part = part + ah[:, sl] @ bl[sl] + al[:, sl] @ bh[sl]
+                total = total + part
+        got = -total.double().numpy()
+        worst[passes] = np.max(np.abs(got - truth)
+                               / (B6_ATOL + B6_RTOL * np.abs(truth)))
+    assert worst[3] <= 0.1, worst
+    assert worst[1] > 1.0, worst
 
 
 def _running_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
