@@ -44,18 +44,22 @@ printing one JSON line:
    the reservoir, two evaluation passes over 2,000 draws every 100
    iterations); held to finite metrics, a rising ELBO, a repad with its
    counts intact and a resume from a checkpoint equal to the bit;
-5. every kernel once more, on the inputs of its last launch in the
-   ZAMTRUX run (B2 at both of its window sizes; the data decides how much
-   work B4 and B8 do; B3's per-trip KL at the etas its last search found),
-   in the stm300 run (B5 at each of its six call sizes, B9's two among
-   them) and in the runner run (B9 at its two call sizes), and B3's fused
-   search on its last inputs on each D <= 64 path (SAMTRON, ZAMTRUX, the
-   runner), against its plain version at the bar of phase 3, timed as
-   there.
+5. every kernel once more, on the inputs of its last launch: B1 and B2 at
+   each of their call sizes on each D = 20 path (SAMTRON; ZAMTRUX, B2 over
+   the reuse and the total window; the runner, B1 over the GMM target's
+   modes and over the model, B2 at two sizes), each row with its path,
+   sizes and equal bits on two calls; in the ZAMTRUX run B3's per-trip KL
+   (at the etas its last search found), B4 and B8 (the data decides how
+   much work they do); in the stm300 run B5 at each of its six call sizes
+   (B9's two among them) and in the runner run B9 at its two call sizes;
+   and B3's fused search on its last inputs on each D <= 64 path
+   (SAMTRON, ZAMTRUX, the runner); each against its plain version at the
+   bar of phase 3, timed as there.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
-B5-B7, the runner for B9), the card's name and power limit as
+B5-B7, the runner for B9; B1's, B2's and the fused search's ``paths``: their
+numbers on each path's last inputs), the card's name and power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 Nothing is caught: any failure exits non-zero before that line.  Without
 a CUDA card it exits 1.
@@ -220,25 +224,30 @@ def max_err(got, want, atol: float, rtol: float):
     return float(diff.max()), ok
 
 
-def density_inputs(dev):
-    """A main-path-shaped mixture (45 of 48 slots active, flagship prior)
-    and N = 48 * 200 samples drawn from it."""
+def density_inputs(dev, d: int = D, n: int = KMAX * N_DES, seed: int = 1,
+                   scattered: bool = False):
+    """A main-path-shaped mixture at D = ``d`` (45 of 48 slots active,
+    means ~ 100, covariances 300 (A A^T / d + 0.2 I)) and ``n`` samples
+    drawn from its 48 slots in slot order, as a path's sample database
+    holds them, or (``scattered``) in a random order."""
     import torch
 
-    g = torch.Generator().manual_seed(1)
-    k, n = KMAX, KMAX * N_DES
-    means = torch.randn(k, D, generator=g) * 100.0
-    a = torch.randn(k, D, D, generator=g)
-    covs = 300.0 * (a @ a.mT / D + 0.2 * torch.eye(D))
+    g = torch.Generator().manual_seed(seed)
+    k = KMAX
+    means = torch.randn(k, d, generator=g) * 100.0
+    a = torch.randn(k, d, d, generator=g)
+    covs = 300.0 * (a @ a.mT / d + 0.2 * torch.eye(d))
     chols = torch.linalg.cholesky(covs)
-    inv_chols = torch.linalg.solve_triangular(chols, torch.eye(D).expand(
-        k, D, D), upper=False)
+    inv_chols = torch.linalg.solve_triangular(chols, torch.eye(d).expand(
+        k, d, d), upper=False)
     logw = torch.full((k,), -math.log(K0))
     logw[K0:] = -math.inf
     logdets = torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)).sum(-1)
-    comp_of = torch.arange(n) // N_DES
-    eps = torch.randn(n, D, generator=g)
+    comp_of = torch.arange(n) * k // n
+    eps = torch.randn(n, d, generator=g)
     x = means[comp_of] + torch.einsum("nij,nj->ni", chols[comp_of], eps)
+    if scattered:
+        x = x[torch.randperm(n, generator=g)]
     return [t.to(dev).contiguous() for t in (means, inv_chols, logw, logdets,
                                              x)]
 
@@ -502,38 +511,72 @@ def reuse_kernel_rows(dev):
     return [b4, rows[0]]
 
 
+def density_check(got, again, want) -> dict:
+    """B1's or B2's outputs ``got`` against the plain version's ``want``:
+    every finite reference entry within atol 5e-4 + rtol 1e-5 (its max
+    |error| and the worst error over that bar), NaN, +inf and -inf in the
+    same places, and equal bits with a second call's ``again``."""
+    import torch
+
+    err, worst, within, places = 0.0, 0.0, True, True
+    for gv, wv in zip(got, want):
+        for where in (torch.isnan, torch.isposinf, torch.isneginf):
+            places &= torch.equal(where(gv), where(wv))
+        fin = torch.isfinite(wv)
+        e, ok = max_err(gv[fin], wv[fin], atol=5e-4, rtol=1e-5)
+        bar = 5e-4 + 1e-5 * wv[fin].abs()
+        worst = max(worst, float(((gv[fin] - wv[fin]).abs() / bar).max()))
+        err, within = max(err, e), within and ok
+    equal_bits = all(torch.equal(gv, av) for gv, av in zip(got, again))
+    return dict(max_abs_err=err, worst_over_bar=worst, places=places,
+                equal_bits=equal_bits, ok=within and places and equal_bits)
+
+
+def density_bound(name, args, want) -> dict:
+    """The least time of B1 (``density_pack``) or B2 (``densities``) on
+    ``args``, given the plain version's outputs ``want``: each input read
+    once (only the lower triangle of the factors is used), each output
+    written once; FMAs: the whitening y = L (x - mu) of every sample by
+    every slot, and for B1's gradient L^T y once more for each (sample,
+    slot) pair whose responsibility is nonzero (the others add nothing,
+    and the kernel skips them)."""
+    import torch
+
+    means, _, logw, _, x = args
+    (k, d), n = means.shape, x.shape[0]
+    grads = name == "density_pack"
+    tri = d * (d + 1) / 2
+    nbytes = 4 * (k * d + k * tri + 2 * k + n * d
+                  + k * n + n + (n * d if grads else 0))
+    pairs = 0
+    if grads:
+        comp, model = want[0], want[1]
+        resp = torch.exp(comp + logw[:, None] - model[None, :])
+        pairs = int(((resp > 0) & (logw > -math.inf)[:, None]).sum())
+    b_ms, b_by = bound_ms(2 * tri * (n * k + pairs), nbytes)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                **({"responsible_pairs": pairs} if grads else {}))
+
+
 def measure_density(name, args) -> dict:
     """B1 (``density_pack``) or B2 (``densities``) on ``args`` against its
-    plain version (every output within atol 5e-4 + rtol 1e-5), device times
-    and the bound these inputs need."""
+    plain version (``density_check``), device times and the bound these
+    inputs need (``density_bound``)."""
     import torch
 
     from gmmvi_tpu_torch.ops import density as dops
 
     fn, plain = getattr(dops, name), getattr(dops, name + "_plain")
     got = fn(*args)
+    again = fn(*args)
     want = plain(*args)
     torch.cuda.synchronize()
-    errs = [max_err(gv, wv, atol=5e-4, rtol=1e-5)
-            for gv, wv in zip(got, want)]
     means, _, logw, _, x = args
-    (k, d), n = means.shape, x.shape[0]
-    grads = name == "density_pack"
-    k_active = int((logw > -math.inf).sum())
-    tri = d * (d + 1) / 2
-    # each input read once (only the lower triangle of the factors is
-    # used), each output written once
-    nbytes = 4 * (k * d + k * tri + 2 * k + n * d
-                  + k * n + n + (n * d if grads else 0))
-    # FMAs: the whitening L^{-1}(x - mu) for every slot, and for the
-    # gradient L^{-T} y once more for the active slots only
-    fmas = n * tri * (k + (k_active if grads else 0))
-    b_ms, b_by = bound_ms(2 * fmas, nbytes)
-    return dict(max_abs_err=max(e[0] for e in errs),
-                ok=all(e[1] for e in errs), samples=n,
+    return dict(**density_check(got, again, want), components=means.shape[0],
+                live_components=int((logw > -math.inf).sum()),
+                samples=x.shape[0], **density_bound(name, args, want),
                 ms=device_ms(lambda: fn(*args)),
-                plain_ms=device_ms(lambda: plain(*args)),
-                bound_ms=b_ms, bound_by=b_by)
+                plain_ms=device_ms(lambda: plain(*args)))
 
 
 def kl_fmas(d: int) -> float:
@@ -1065,18 +1108,27 @@ def recording(captured: dict, module, attr, key=None):
 
 
 def capture_last_inputs(captured: dict):
-    """Keep the arguments of the latest call the ZAMTRUX path makes to each
-    kernel wrapper, B2's by its number of samples (its two call sites, the
-    ESS pass over the reuse window and the weight update over the total
-    window, differ in size)."""
-    from gmmvi_tpu_torch.ops import density
+    """Keep the arguments of the latest call the ZAMTRUX path makes to B4's
+    and B8's wrappers."""
     from gmmvi_tpu_torch.optimization import ng_estimators, sample_db
 
-    return [recording(captured, density, "density_pack"),
-            recording(captured, density, "densities",
-                      key=lambda args: ("densities", args[4].shape[0])),
-            recording(captured, sample_db, "background_logpdf"),
+    return [recording(captured, sample_db, "background_logpdf"),
             recording(captured, ng_estimators, "more_grams")]
+
+
+def capture_density_inputs(densities: dict, path: str):
+    """Keep the arguments of the latest B1 and B2 launch at each call size
+    on ``path`` in ``densities``, under (name, path, K, N): B2's two call
+    sites on the reuse paths (the ESS pass over the reuse window, the
+    weight update over the total window) and B1's two on the runner (the
+    GMM target's modes, the model's slots) differ in size."""
+    from gmmvi_tpu_torch.ops import density
+
+    def key(name):
+        return lambda args: (name, path, args[0].shape[0], args[4].shape[0])
+
+    return [recording(densities, density, name, key=key(name))
+            for name in ("density_pack", "densities")]
 
 
 def watch_search(searches: dict, path: str, trips: list):
@@ -1123,11 +1175,13 @@ def capture_large_d_inputs(captured: dict):
             recording(captured, stein, "stein_smom")]
 
 
-def main_path_phase(dev, codename, kernel_names, searches, captured=None):
+def main_path_phase(dev, codename, kernel_names, searches, densities,
+                    captured=None):
     """130 iterations of ``codename`` through the entry points, the launch
     counters set to 0 just before and read just after; the last fused
-    search's inputs go to ``searches[codename]``; with ``captured``, the
-    inputs of the last B1, B2, B4 and B8 launches go there."""
+    search's inputs go to ``searches[codename]``, the last B1 and B2
+    launches' at each size to ``densities``; with ``captured``, the inputs
+    of the last B4 and B8 launches go there."""
     import torch
 
     from gmmvi_tpu_torch.experiments.setup import init_experiment
@@ -1154,7 +1208,8 @@ def main_path_phase(dev, codename, kernel_names, searches, captured=None):
 
     gmmvi._propose_phase = recording_propose
     trips: list = []
-    restore = [watch_search(searches, codename, trips)]
+    restore = [watch_search(searches, codename, trips),
+               *capture_density_inputs(densities, codename)]
     if captured is not None:
         restore += capture_last_inputs(captured)
 
@@ -1225,34 +1280,52 @@ def main_path_phase(dev, codename, kernel_names, searches, captured=None):
 
 
 def main_path_input_rows(captured, search_args) -> None:
-    """Every kernel once more on the inputs of its last launch in the
-    ZAMTRUX run (B2 at each of its two window sizes; B3's per-trip KL at
-    the etas the last search found), against its plain version at the
-    kernel phase's bar; fails on a miss.  The solved MORE terms are
-    reported, not held: on the main path's data the ridge-1e-12 fit may be
-    ill-conditioned."""
+    """B3's per-trip KL (at the etas the last search found), B4 and B8 once
+    more on the inputs of their last launch in the ZAMTRUX run, against
+    their plain versions at the kernel phase's bar; fails on a miss.  The
+    solved MORE terms are reported, not held: on the main path's data the
+    ridge-1e-12 fit may be ill-conditioned."""
     from gmmvi_tpu_torch.ops import trust_region as tops
 
-    measures = [("density_pack", captured["density_pack"],
-                 lambda a: measure_density("density_pack", a))]
-    for key in sorted(k for k in captured if k[0] == "densities"):
-        measures.append((f"densities[N={key[1]}]", captured[key],
-                         lambda a: measure_density("densities", a)))
     found = tops.tr_search(*search_args)[0]
-    measures += [("tr_kl", (found, search_args[0]),
-                  lambda a: measure_tr_kl(*a)),
-                 ("background_logpdf", captured["background_logpdf"],
-                  measure_background),
-                 ("more_grams", captured["more_grams"], measure_more)]
-    if len(measures) != 6:
-        raise AssertionError(f"expected B2 at two window sizes, got "
-                             f"{[m[0] for m in measures]}")
+    measures = [("tr_kl", (found, search_args[0]),
+                 lambda a: measure_tr_kl(*a)),
+                ("background_logpdf", captured["background_logpdf"],
+                 measure_background),
+                ("more_grams", captured["more_grams"], measure_more)]
     for name, args, measure in measures:
         out = measure(args)
         emit({"phase": "kernel_on_main_path_inputs", "name": name, **out})
         if not out["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the main path's inputs: {out}")
+
+
+def density_path_rows(densities: dict) -> dict:
+    """B1 and B2 once more on the inputs of their last launch at each call
+    size on each D = 20 path, held as in the kernel phase; fails on a miss
+    or where a path ran either kernel never.  Returns per kernel, per
+    "path K=.. N=..", its numbers."""
+    out: dict = {"density_pack": {}, "densities": {}}
+    for key in sorted(densities):
+        name, path, k, n = key
+        row = measure_density(name, densities[key])
+        emit({"phase": "kernel_on_main_path_inputs", "path": path,
+              "name": name, **row})
+        if not row["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the {path} path's inputs: {row}")
+        out[name][f"{path} K={k} N={n}"] = {
+            f: row[f] for f in ("samples", "components", "live_components",
+                                "responsible_pairs", "max_abs_err",
+                                "equal_bits", "ms", "plain_ms", "bound_ms",
+                                "bound_by") if f in row}
+    for name, rows in out.items():
+        for path in ("SAMTRON", "ZAMTRUX", "gmm20"):
+            if not any(label.startswith(path + " ") for label in rows):
+                raise AssertionError(f"no {name} launch recorded on the "
+                                     f"{path} path")
+    return out
 
 
 LARGE_KERNELS = ("densities_large", "density_grads_large", "stein_smom")
@@ -1500,13 +1573,14 @@ def watch_repads(gmmvi, repads: list) -> None:
     gmmvi.grow_capacity = recording_grow
 
 
-def runner_phase(dev, captured, searches):
+def runner_phase(dev, captured, searches, densities):
     """The runner path, as docs/get_started.md runs it:
     ``GmmviRunner.build_from_config(get_default_config("SAMTRON",
     "gmm20"))`` and ``iterate_and_log(n)`` for n = 0..1499 (0..599 if the
     median of steps 1-10 passes 60 ms), the launch counters set to 0 just
     before and read just after; B9's last inputs at each call size go to
-    ``captured``, the last fused search's to ``searches["gmm20"]``.  Holds:
+    ``captured``, the last fused search's to ``searches["gmm20"]``, the
+    last B1 and B2 launches' at each size to ``densities``.  Holds:
     every metric finite, the last evaluation's ELBO
     above the first's, a repad with its counts intact (if the run never
     fills its 24 slots, the same config with 8 slots runs until it
@@ -1535,7 +1609,8 @@ def runner_phase(dev, captured, searches):
     restore = [recording(captured, mops, "mixture_logpdf",
                          key=lambda args: ("mixture_logpdf",
                                            args[4].shape[0])),
-               watch_search(searches, "gmm20", trips)]
+               watch_search(searches, "gmm20", trips),
+               *capture_density_inputs(densities, "gmm20")]
     repads, evals, walls = [], [], []
     watch_repads(g, repads)
     path = BUILD_DIR / "runner_resume.npz"
@@ -1697,14 +1772,17 @@ def main() -> int:
     captured_large: dict = {}
     captured_runner: dict = {}
     searches: dict = {}
+    densities: dict = {}
     by_path = {"SAMTRON": main_path_phase(dev, "SAMTRON", flagship,
-                                          searches),
+                                          searches, densities),
                "ZAMTRUX": main_path_phase(
                    dev, "ZAMTRUX",
                    flagship + ("background_logpdf", "more_grams"), searches,
-                   captured),
+                   densities, captured),
                "stm300": large_d_phase(dev, captured_large),
-               "gmm20": runner_phase(dev, captured_runner, searches)}
+               "gmm20": runner_phase(dev, captured_runner, searches,
+                                     densities)}
+    on_density_paths = density_path_rows(densities)
     main_path_input_rows(captured, searches["ZAMTRUX"])
     large_d_input_rows(captured_large)
     runner_input_rows(captured_runner)
@@ -1712,6 +1790,8 @@ def main() -> int:
     for r in rows:
         if r["name"] == "tr_search":
             r["paths"] = on_paths
+        if r["name"] in on_density_paths:
+            r["paths"] = on_density_paths[r["name"]]
         # the flagship's count for B1-B3, the reuse path's for B4 and B8,
         # the stm300 path's for B5-B7, the runner path's for B9
         path = ("SAMTRON" if r["name"] in flagship else
@@ -1719,8 +1799,8 @@ def main() -> int:
                 "gmm20" if r["name"] == "mixture_logpdf" else "ZAMTRUX")
         r["launches"] = by_path[path][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_tc_ms", "paths")
+            "ms", "plain_ms", "bound_ms", "bound_by", "responsible_pairs",
+            "library_ms", "bound_tc_ms", "paths")
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -99,7 +99,9 @@ def main() -> int:
                 return float(getattr(ev, attr))
         return 0.0
 
-    groups = {"density_kernel": "B1/B2 density_kernel",
+    groups = {"density_pack_kernel": "B1 density_pack_kernel",
+              "densities_kernel": "B2 densities_kernel",
+              "density_wide_kernel": "B1/B2 density_wide_kernel",
               "tr_kl_kernel": "B3 tr_kl_kernel",
               "tr_search_kernel": "B3 tr_search_kernel",
               "background_kernel": "B4/B9 background_kernel",

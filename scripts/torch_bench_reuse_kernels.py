@@ -319,8 +319,8 @@ def path_inputs(dev) -> dict:
 
     captured: dict = {}
     cs.main_path_phase(dev, "ZAMTRUX",
-                       ("density_pack", "densities", "tr_kl",
-                        "background_logpdf", "more_grams"), captured)
+                       ("density_pack", "densities", "tr_search",
+                        "background_logpdf", "more_grams"), {}, {}, captured)
     return {"more": captured["more_grams"],
             "background": captured["background_logpdf"]}
 

@@ -6,6 +6,8 @@ sm_90a) and ``nvcc``; without them each skips.  On a machine with the card:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 """
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -60,6 +62,59 @@ def test_density_kernels_match_plain(dev, k, d, n, n_masked):
             assert gv.shape == wv.shape
             torch.testing.assert_close(gv, wv, atol=5e-4, rtol=1e-5)
         assert cuda.LAUNCHES[name] == before[name] + 1
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository root, as a module."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _check_density(args):
+    """B1 and B2 on ``args`` against their plain versions as
+    ``chip_smoke.density_check`` holds them: atol 5e-4 + rtol 1e-5, NaN and
+    +-inf in the same places, equal bits on a second call."""
+    from gmmvi_tpu_torch.ops import density as dops
+
+    for fn, plain in ((dops.density_pack, dops.density_pack_plain),
+                      (dops.densities, dops.densities_plain)):
+        got = fn(*args)
+        again = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert [g.shape for g in got] == [w.shape for w in want]
+        out = _chip_smoke().density_check(got, again, want)
+        assert out["ok"], out
+
+
+@pytest.mark.parametrize("d", range(1, 33))
+def test_density_unrolled_instances(dev, d):
+    """Every unrolled instance (D = 1..32) of B1 and B2 at a small ragged N,
+    two of seven slots masked: within atol 5e-4 + rtol 1e-5 of the plain
+    versions, equal bits on two calls."""
+    _check_density([t.to(dev) for t in _mixture(7, d, 257, 2, seed=d)])
+
+
+@pytest.mark.parametrize("d", [33, 100, 128])
+def test_density_wide_instance_at_window_size(dev, d):
+    """The run-time instance (33 <= D <= 128) at the reuse window's K = 48
+    and N = 28,800, three slots masked."""
+    _check_density([t.to(dev) for t in _mixture(48, d, 28800, 3, seed=d)])
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+@pytest.mark.parametrize("n", [28800, 19200, 9600, 2400, 1])
+def test_density_main_path_magnitudes_equal_bits(dev, n, scattered):
+    """B1 and B2 at the main path's magnitudes (45 of 48 slots live,
+    ``chip_smoke.density_inputs``) and its window sizes, down to N = 1,
+    with the samples in slot order and scattered: within the bar, equal
+    bits on two calls."""
+    _check_density(_chip_smoke().density_inputs(dev, 20, n, seed=n,
+                                                scattered=scattered))
 
 
 @pytest.mark.parametrize("k,d", [(48, 20), (5, 1), (9, 6), (3, 64)])
