@@ -43,7 +43,20 @@ printing one JSON line:
    16,384-sample reservoir; kernels B1-B4 and B9 (the add heuristic over
    the reservoir, two evaluation passes over 2,000 draws every 100
    iterations); held to finite metrics, a rising ELBO, a repad with its
-   counts intact and a resume from a checkpoint equal to the bit;
+   counts intact and a resume from a checkpoint equal to the bit.  Then
+   the rest of the codename matrix: SEPYFUX on stm300,
+   ``get_default_config("SEPYFUX", "stm300")`` with nothing cut (20
+   components kept in 24 slots, 100 draws a step from the mixture, iBLR
+   at the fixed stepsize 1e-5; kernels B5 and B6, not B7; held to fevals
+   of exactly 100 a step, a finite state and step 21 on the card equal to
+   the same step on the CPU through the plain versions, leaf by leaf at
+   B5's bar); SEMIDUG at the flagship widths (45 components kept in 48
+   slots, the direct updater, decaying stepsizes, the M letter's reuse;
+   kernels B1, B2 and B4, no search; held to 45 components, a finite state
+   and an improving fit); SAMTRON with standard importance weights for 30
+   iterations (B1, B2, B3's search; held to a finite state and the
+   self-normalized run's fevals at every step).  Every path prints its
+   median step ms, fevals and launch counts;
 5. every kernel once more, on the inputs of its last launch: B1 and B2 at
    each of their call sizes on each D = 20 path (SAMTRON; ZAMTRUX, B2 over
    the reuse and the total window; the runner, B1 over the GMM target's
@@ -53,13 +66,15 @@ printing one JSON line:
    much work they do); in the stm300 run B5 at each of its six call sizes
    (B9's two among them) and in the runner run B9 at its two call sizes;
    and B3's fused search on its last inputs on each D <= 64 path
-   (SAMTRON, ZAMTRUX, the runner); each against its plain version at the
-   bar of phase 3, timed as there.
+   (SAMTRON, ZAMTRUX, the runner); on the new paths B1 and B2 (SEMIDUG,
+   standard-IW SAMTRON), B4 at both sizes (SEMIDUG), B5 and B6 (SEPYFUX)
+   and B3's fused search (standard-IW SAMTRON); each against its plain
+   version at the bar of phase 3, timed as there.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
-B5-B7, the runner for B9; B1's, B2's and the fused search's ``paths``: their
-numbers on each path's last inputs), the card's name and power limit as
+B5-B7, the runner for B9; the ``paths`` of B1-B6: their numbers on each
+path's last inputs), the card's name and power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 Nothing is caught: any failure exits non-zero before that line.  Without
 a CUDA card it exits 1.
@@ -91,6 +106,14 @@ D, KMAX, K0, N_DES = 20, 48, 45, 200
 REUSED = 2 * N_DES                       # ratio_reused_samples_to_desired 2.0
 N_WINDOW = KMAX * (REUSED + N_DES)       # 28,800: the total window
 U_BACKGROUND = min(4 * KMAX, 2048)       # 192: max_background_dists
+# the D = 20 paths with the M letter's reuse
+REUSE_PATHS = ("ZAMTRUX", "SEMIDUG")
+# standard importance weights at the flagship widths: its iterations
+STANDARD_IW_ITERS = 30
+# the paths of B1 and B2 (D <= 128), and of the fused search (D <= 64)
+DENSITY_PATHS = ("SAMTRON", "ZAMTRUX", "gmm20", "SEMIDUG",
+                 "SAMTRON-standard-IW")
+SEARCH_PATHS = ("SAMTRON", "ZAMTRUX", "gmm20", "SAMTRON-standard-IW")
 # stm300 (SAMTRON's defaults): Kmax 40 = max(2 x 20, 20 + 16) rounded to 8,
 # 100 fresh and 200 reused samples per component
 D_LARGE, KMAX_LARGE, N_DES_LARGE = 300, 40, 100
@@ -98,6 +121,11 @@ N_REUSE_LARGE = KMAX_LARGE * 2 * N_DES_LARGE            # 8,000
 N_LARGE = N_REUSE_LARGE + KMAX_LARGE * N_DES_LARGE      # 12,000
 U_LARGE = min(4 * KMAX_LARGE, 2048)                     # 160
 LARGE_STEP_MS_CAP, LARGE_ITERS_CUT = 150.0, 61
+# SEPYFUX on stm300: 20 components kept in 24 slots, 100 draws a step from
+# the mixture; after step 20 the next step runs on the card and again on
+# the CPU through the plain versions, leaves held at B5's bar
+KMAX_SEPYFUX, SEPYFUX_COMPARED_STEP = 24, 20
+STEP_RTOL, STEP_ATOL = 2e-4, 2e-3
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # the runner path: get_default_config("SAMTRON", "gmm20") as the quick start
 # runs it, 1,500 iterations (600 if the median step passes 60 ms)
@@ -1035,15 +1063,18 @@ def mixture_logpdf_rows(dev):
     return [row]
 
 
-def flagship_config(seed: int = 0, codename: str = "SAMTRON") -> dict:
+def flagship_config(seed: int = 0, codename: str = "SAMTRON",
+                    standard_iw: bool = False) -> dict:
     """SAMTRON on the 20-D Student-T mixture: the flagship workload.  With
     ``codename="ZAMTRUX"`` the same widths under VIPS, with the M letter's
-    sample reuse (2.0 x n_des per component)."""
+    sample reuse (2.0 x n_des per component); ``"SEMIDUG"`` the same reuse
+    with a fixed number of components (45 in 48 slots) and each letter's
+    own stepsize defaults.  ``standard_iw``: standard importance weights in
+    the estimator and the weight updater."""
     from gmmvi_tpu_torch.configs import (get_default_algorithm_config,
                                          update_config)
 
-    cfg = get_default_algorithm_config(codename)
-    return update_config(cfg, {
+    cfg = update_config(get_default_algorithm_config(codename), {
         "start_seed": seed, "seed": seed, "environment_name": "stm",
         "model_initialization": {
             "use_diagonal_covs": False, "num_initial_components": K0,
@@ -1054,22 +1085,29 @@ def flagship_config(seed: int = 0, codename: str = "SAMTRON") -> dict:
         "sample_selector_config": {
             "desired_samples_per_component": N_DES,
             "ratio_reused_samples_to_desired":
-                REUSED / N_DES if codename == "ZAMTRUX" else 0.0,
+                REUSED / N_DES if codename in REUSE_PATHS else 0.0,
         },
-        "num_component_adapter_config": {
+        "gmmvi_runner_config": {"log_metrics_interval": 100},
+        "tpu": {"max_components": KMAX},
+    })
+    if cfg["num_component_adapter_type"] == "adaptive":
+        cfg = update_config(cfg, {"num_component_adapter_config": {
             "del_iters": 100, "add_iters": 60, "max_components": KMAX,
             "thresholds_for_add_heuristic": [5000.0, 1000.0, 500.0, 200.0,
                                              100.0, 50.0],
             "min_weight_for_del_heuristic": 1e-6,
             "num_database_samples": 1024, "num_prior_samples": 0,
-        },
-        "component_stepsize_adapter_config": {
+        }})
+    if cfg["component_stepsize_adapter_type"] == "improvement-based":
+        cfg = update_config(cfg, {"component_stepsize_adapter_config": {
             "initial_stepsize": 0.1, "min_stepsize": 0.001,
             "max_stepsize": 1.0,
-        },
-        "gmmvi_runner_config": {"log_metrics_interval": 100},
-        "tpu": {"max_components": KMAX},
-    })
+        }})
+    if standard_iw:
+        cfg = update_config(cfg, {
+            section: {"use_self_normalized_importance_weights": False}
+            for section in ("ng_estimator_config", "weight_updater_config")})
+    return cfg
 
 
 def newest_window_mean_lnpdf(db) -> float:
@@ -1108,11 +1146,15 @@ def recording(captured: dict, module, attr, key=None):
 
 
 def capture_last_inputs(captured: dict):
-    """Keep the arguments of the latest call the ZAMTRUX path makes to B4's
-    and B8's wrappers."""
+    """Keep the arguments of the latest call a reuse path makes to B4's
+    wrapper at each call size (under ("background_logpdf", N): the ESS
+    pass over the reuse window, the finalize pass over the total window)
+    and to B8's."""
     from gmmvi_tpu_torch.optimization import ng_estimators, sample_db
 
-    return [recording(captured, sample_db, "background_logpdf"),
+    return [recording(captured, sample_db, "background_logpdf",
+                      key=lambda args: ("background_logpdf",
+                                        args[4].shape[0])),
             recording(captured, ng_estimators, "more_grams")]
 
 
@@ -1175,13 +1217,19 @@ def capture_large_d_inputs(captured: dict):
             recording(captured, stein, "stein_smom")]
 
 
-def main_path_phase(dev, codename, kernel_names, searches, densities,
-                    captured=None):
-    """130 iterations of ``codename`` through the entry points, the launch
-    counters set to 0 just before and read just after; the last fused
-    search's inputs go to ``searches[codename]``, the last B1 and B2
-    launches' at each size to ``densities``; with ``captured``, the inputs
-    of the last B4 and B8 launches go there."""
+def main_path_phase(dev, path, kernel_names, searches, densities,
+                    captured=None, fevals_at=None):
+    """``path``'s iterations through the entry points (130; 30 for
+    standard importance weights), the launch counters set to 0 just before
+    and read just after; the last fused search's inputs go to
+    ``searches[path]``, the last B1 and B2 launches' at each size to
+    ``densities``; with ``captured``, the inputs of the last B4 launch at
+    each size and of the last B8 launch go there.  ``path``: SAMTRON or
+    ZAMTRUX (the flagship widths under VIPS), SEMIDUG (45 components kept
+    in 48 slots, the direct updater, decaying stepsizes, the M letter's
+    reuse) or SAMTRON-standard-IW (standard importance weights, held to
+    ``fevals_at``: the self-normalized run's fevals after each step).
+    Returns the launch counts and the fevals after each step."""
     import torch
 
     from gmmvi_tpu_torch.experiments.setup import init_experiment
@@ -1190,15 +1238,18 @@ def main_path_phase(dev, codename, kernel_names, searches, densities,
     from gmmvi_tpu_torch.ops import cuda
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
+    standard_iw = path == "SAMTRON-standard-IW"
+    codename = "SAMTRON" if standard_iw else path
+    iters = STANDARD_IW_ITERS if standard_iw else MAIN_ITERS
     target = make_target(num_dimensions=D, harder_setting=False, seed=0,
                          device=dev)
-    cfg = flagship_config(codename=codename)
+    cfg = flagship_config(codename=codename, standard_iw=standard_iw)
     cfg["target_fn"] = target
     _, model, meta = init_experiment(cfg, device=dev)
     gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
-    # record each step's reused-sample count (device tensors, read at the
-    # end, so the record adds no host sync)
-    reused = []
+    # record each step's reused-sample count and fevals (device tensors,
+    # read at the end, so the record adds no host sync)
+    reused, fevals = [], []
     propose = gmmvi._propose_phase
 
     def recording_propose(state, draws):
@@ -1208,24 +1259,23 @@ def main_path_phase(dev, codename, kernel_names, searches, densities,
 
     gmmvi._propose_phase = recording_propose
     trips: list = []
-    restore = [watch_search(searches, codename, trips),
-               *capture_density_inputs(densities, codename)]
+    restore = [watch_search(searches, path, trips),
+               *capture_density_inputs(densities, path)]
     if captured is not None:
         restore += capture_last_inputs(captured)
 
     torch.cuda.reset_peak_memory_stats(dev)
     cuda.reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gmmvi.train_iter()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    start_lnpdf = newest_window_mean_lnpdf(gmmvi.state.db)
-    t0 = time.perf_counter()
-    for _ in range(MAIN_ITERS - 1):
+    step_s = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
         gmmvi.train_iter()
-    torch.cuda.synchronize()
-    steady_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        fevals.append(gmmvi.state.db.num_samples_written)
+        if len(step_s) == 1:
+            start_lnpdf = newest_window_mean_lnpdf(gmmvi.state.db)
     launches = dict(cuda.LAUNCHES)
     for undo in restore:
         undo()
@@ -1234,53 +1284,88 @@ def main_path_phase(dev, codename, kernel_names, searches, densities,
     num_active = int(st.model.num_active)
     end_lnpdf = newest_window_mean_lnpdf(st.db)
     means_finite = bool(torch.isfinite(st.model.means[:num_active]).all())
+    state_finite = model_finite(st)
     reused = [int(r) for r in reused]
+    fevals = [int(f) for f in fevals]
     search_trips = lockstep_trips(trips)
-    step_ms = steady_s / (MAIN_ITERS - 1) * 1e3
+    step_ms = sum(step_s[1:]) / (iters - 1) * 1e3
     out = dict(
-        phase="main_path", codename=codename, iterations=MAIN_ITERS,
-        first_step_s=first_s, step_ms=step_ms,
+        phase="main_path", path=path, codename=codename, iterations=iters,
+        first_step_s=step_s[0], step_ms=step_ms,
+        median_step_ms=statistics.median(step_s[1:]) * 1e3,
         samples_per_s=KMAX * N_DES / (step_ms / 1e3),
-        trips_per_step=sum(search_trips) / MAIN_ITERS,
-        search_launches_per_step=launches["tr_search"] / MAIN_ITERS,
-        launches=launches, num_active=num_active,
-        fevals=int(st.db.num_samples_written),
+        trips_per_step=sum(search_trips) / iters,
+        search_launches_per_step=launches["tr_search"] / iters,
+        launches=launches, num_active=num_active, fevals=fevals[-1],
         num_reused_mean=sum(reused) / len(reused),
         num_reused_min_after_3=min(reused[4:]),
         window_mean_target_lnpdf_start=start_lnpdf,
         window_mean_target_lnpdf_end=end_lnpdf, means_finite=means_finite,
+        state_finite=state_finite,
         peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
     emit(out)
-    if not means_finite:
-        raise AssertionError("non-finite means after the main path")
+    if not (means_finite and state_finite):
+        raise AssertionError(f"a non-finite state after the {path} path")
     if not 1 <= num_active <= KMAX:
         raise AssertionError(f"num_active {num_active} outside [1, {KMAX}]")
+    if codename == "SEMIDUG" and num_active != K0:
+        raise AssertionError(f"fixed adaptation ended with {num_active} "
+                             f"components, not {K0}")
     for name in kernel_names:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"{codename} path")
-    wanted = {"density_pack": MAIN_ITERS, "densities": MAIN_ITERS,
-              "tr_search": MAIN_ITERS}
+                                 f"{path} path")
     if launches["tr_kl"] != 0:
         raise AssertionError(f"the per-trip KL launched {launches['tr_kl']} "
-                             f"times on the {codename} path")
-    if codename == "ZAMTRUX":
-        wanted.update(background_logpdf=2 * MAIN_ITERS,
-                      more_grams=MAIN_ITERS)
+                             f"times on the {path} path")
+    # the direct updater (I) has no stepsize search; the ESS pass over the
+    # reuse window launches B2 and B4 once more a step
+    wanted = {"density_pack": iters, "densities": iters,
+              "tr_search": iters}
+    if codename in REUSE_PATHS:
+        wanted.update(densities=2 * iters, background_logpdf=2 * iters)
         if not min(reused[4:]) > 0:
             raise AssertionError("no sample was reused after iteration 3")
+    if codename == "ZAMTRUX":
+        wanted.update(more_grams=iters)
+    if codename == "SEMIDUG":
+        del wanted["tr_search"]
+        if launches["tr_search"] != 0:
+            raise AssertionError("the stepsize search launched on the "
+                                 "direct updater's path")
     for name, least in wanted.items():
         if launches[name] < least:
             raise AssertionError(f"{name}: {launches[name]} launches < "
-                                 f"{least} on the {codename} path")
-    if not end_lnpdf > start_lnpdf:
+                                 f"{least} on the {path} path")
+    if standard_iw:
+        # no reuse, no add before iteration 60 and no delete before 100:
+        # every step draws n_des for each of the 45 components, as the
+        # self-normalized run does
+        if fevals != fevals_at[:iters]:
+            raise AssertionError(f"standard-IW fevals {fevals} differ from "
+                                 f"the self-normalized run's "
+                                 f"{fevals_at[:iters]}")
+    elif not end_lnpdf > start_lnpdf:
         raise AssertionError(f"mean target log-density did not improve: "
                              f"{start_lnpdf} -> {end_lnpdf}")
-    return launches
+    return launches, fevals
+
+
+def model_finite(state) -> bool:
+    """The active components' parameters and the meta-state's float leaves
+    finite (the histories start at the float32 minimum, a finite value)."""
+    import torch
+
+    k = int(state.model.num_active)
+    m, meta = state.model, state.meta
+    leaves = [m.log_weights[:k], m.means[:k], m.chols[:k], m.inv_chols[:k],
+              meta.stepsizes, meta.reward_history, meta.weight_history,
+              meta.l2_regularizers, state.wstep.stepsize]
+    return all(bool(torch.isfinite(t).all()) for t in leaves)
 
 
 def main_path_input_rows(captured, search_args) -> None:
-    """B3's per-trip KL (at the etas the last search found), B4 and B8 once
+    """B3's per-trip KL (at the etas the last search found) and B8 once
     more on the inputs of their last launch in the ZAMTRUX run, against
     their plain versions at the kernel phase's bar; fails on a miss.  The
     solved MORE terms are reported, not held: on the main path's data the
@@ -1290,8 +1375,6 @@ def main_path_input_rows(captured, search_args) -> None:
     found = tops.tr_search(*search_args)[0]
     measures = [("tr_kl", (found, search_args[0]),
                  lambda a: measure_tr_kl(*a)),
-                ("background_logpdf", captured["background_logpdf"],
-                 measure_background),
                 ("more_grams", captured["more_grams"], measure_more)]
     for name, args, measure in measures:
         out = measure(args)
@@ -1299,6 +1382,35 @@ def main_path_input_rows(captured, search_args) -> None:
         if not out["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the main path's inputs: {out}")
+
+
+PATH_FIELDS = ("samples", "components", "live_components", "rows",
+               "live_rows", "computed_rows", "responsible_pairs",
+               "live_tile_pairs", "max_abs_err", "equal_bits", "same_bits",
+               "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms")
+
+
+def background_path_rows(captured, path: str) -> dict:
+    """B4 once more on the inputs of its last launch at each call size on
+    a reuse path (``captured`` from :func:`capture_last_inputs`), held as
+    in the kernel phase; fails on a miss or where it never launched.
+    Returns per "path U=.. N=.." its numbers."""
+    out = {}
+    for key in sorted(k for k in captured if isinstance(k, tuple)
+                      and k[0] == "background_logpdf"):
+        row = measure_background(captured[key])
+        emit({"phase": "kernel_on_main_path_inputs", "path": path,
+              "name": "background_logpdf", **row})
+        if not row["ok"]:
+            raise AssertionError(f"background_logpdf disagrees with its "
+                                 f"plain version on the {path} path's "
+                                 f"inputs: {row}")
+        out[f"{path} U={row['rows']} N={row['samples']}"] = {
+            f: row[f] for f in PATH_FIELDS if f in row}
+    if len(out) != 2:
+        raise AssertionError(f"expected B4 at two call sizes on the {path} "
+                             f"path, got {sorted(out)}")
+    return out
 
 
 def density_path_rows(densities: dict) -> dict:
@@ -1316,12 +1428,9 @@ def density_path_rows(densities: dict) -> dict:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the {path} path's inputs: {row}")
         out[name][f"{path} K={k} N={n}"] = {
-            f: row[f] for f in ("samples", "components", "live_components",
-                                "responsible_pairs", "max_abs_err",
-                                "equal_bits", "ms", "plain_ms", "bound_ms",
-                                "bound_by") if f in row}
+            f: row[f] for f in PATH_FIELDS if f in row}
     for name, rows in out.items():
-        for path in ("SAMTRON", "ZAMTRUX", "gmm20"):
+        for path in DENSITY_PATHS:
             if not any(label.startswith(path + " ") for label in rows):
                 raise AssertionError(f"no {name} launch recorded on the "
                                      f"{path} path")
@@ -1336,7 +1445,7 @@ def search_rows(searches: dict) -> dict:
     D <= 64 path, held as in the kernel phase; fails on a miss.  Returns
     per path its device ms, trips and equality with the host loop."""
     out = {}
-    for path in ("SAMTRON", "ZAMTRUX", "gmm20"):
+    for path in SEARCH_PATHS:
         row = measure_tr_search(searches[path])
         emit({"phase": "kernel_on_main_path_inputs", "path": path,
               "name": "tr_search", **row})
@@ -1472,36 +1581,199 @@ def large_d_phase(dev, captured):
     return launches
 
 
-def large_d_input_rows(captured) -> None:
+def compare_states(got: dict, want: dict, rtol: float, atol: float
+                   ) -> dict:
+    """Leaf by leaf: integers equal, floats within ``atol + rtol |want|``
+    with NaN and infinities in the same places.  Returns per leaf its
+    largest error against the bar's scale (<= 1 holds) and the leaves that
+    miss."""
+    import numpy as np
+
+    ratios, missed = {}, []
+    for name, want_v in want.items():
+        got_v = got[name]
+        if np.issubdtype(want_v.dtype, np.integer):
+            ok = np.array_equal(got_v, want_v)
+            ratios[name] = 0.0 if ok else math.inf
+        else:
+            fin = np.isfinite(want_v)
+            ok = np.array_equal(fin, np.isfinite(got_v)) and np.array_equal(
+                got_v[~fin], want_v[~fin])
+            diff = np.abs(got_v[fin].astype(np.float64) - want_v[fin])
+            scale = atol + rtol * np.abs(want_v[fin].astype(np.float64))
+            ratios[name] = float((diff / scale).max()) if diff.size else 0.0
+            ok = ok and ratios[name] <= 1.0
+        if not ok:
+            missed.append(name)
+    return {"worst": max(ratios.items(), key=lambda kv: kv[1]),
+            "ratios": ratios, "missed": missed}
+
+
+def sepyfux_phase(dev, captured):
+    """SEPYFUX on stm300 through the entry points, from
+    ``get_default_config("SEPYFUX", "stm300")`` with nothing cut: D = 300,
+    20 components kept in 24 slots (E), 100 draws a step from the mixture
+    without reuse (P), iBLR (Y) at the fixed stepsize 1e-5 (F), the direct
+    weight update (U) at the fixed stepsize 1 (X); 130 iterations (61 if
+    the step exceeds 150 ms over iterations 2-11), the launch counters set
+    to 0 just before and read just after; the inputs of the last B5 and B6
+    launches go to ``captured``.  Holds: fevals exactly 100 a step, a
+    finite state, B5 and B6 launched and B7 not (N = 100 < 512, the JAX
+    package's route rule), and step 21 on the card equal to the same step
+    from the same state and draws on the CPU (the plain versions): integer
+    leaves exact, float leaves within B5's bar, rtol 2e-4 / atol 2e-3 (the
+    step's floats follow B5's densities and B6's gradients: the iBLR step
+    moves a component by 1e-5 of its estimate, the weight update moves the
+    log weights by the expected log ratios, B5's output)."""
+    import torch
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch import StepDraws
+    from gmmvi_tpu_torch.configs import get_default_config
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg = get_default_config("SEPYFUX", "stm300")
+    target, model, meta = init_experiment(cfg, device=dev)
+    gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+    sel = gmmvi.selector_cfg
+    shape = (model.num_dimensions, model.max_components, int(
+        model.num_active), sel.kind, sel.desired_samples_per_component,
+        sel.reused_samples_per_component, gmmvi.vips_cfg,
+        gmmvi.component_stepsize_cfg["initial_stepsize"])
+    if shape != (D_LARGE, KMAX_SEPYFUX, 20, "mixture-based", N_DES_LARGE, 0,
+                 None, 1e-5):
+        raise AssertionError(f"SEPYFUX on stm300 built as {shape}")
+    restore = capture_large_d_inputs(captured)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    iters, step_s, fevals = MAIN_ITERS, [], []
+    before = after = draws = None
+    while len(step_s) < iters:
+        t0 = time.perf_counter()
+        if len(step_s) == SEPYFUX_COMPARED_STEP:
+            before = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+            draws = gmmvi.draw(gmmvi.num_updates)
+            t0 = time.perf_counter()
+            gmmvi.train_iter(draws)
+        else:
+            gmmvi.train_iter()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        fevals.append(gmmvi.state.db.num_samples_written)
+        if before is not None and after is None:
+            after = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+        if len(step_s) == 11 and statistics.median(step_s[1:]) * 1e3 \
+                > LARGE_STEP_MS_CAP:
+            iters = LARGE_ITERS_CUT
+    launches = dict(cuda.LAUNCHES)
+    for undo in restore:
+        undo()
+
+    st = gmmvi.state
+    fevals = [int(f) for f in fevals]
+    state_finite = model_finite(st)
+    # the same step on the CPU, through the plain versions
+    cpu_target, cpu_model, cpu_meta = init_experiment(cfg, device="cpu")
+    cpu = GMMVI.build_from_config(cfg, cpu_target, cpu_model, cpu_meta,
+                                  device="cpu")
+    cpu.state = gmmvi_tpu_torch.state_from_numpy(before, device="cpu",
+                                                 like=cpu.state)
+    cpu.train_iter(StepDraws(**{
+        f: None if v is None else v.cpu()
+        for f, v in vars(draws).items()}))
+    cmp = compare_states(after, gmmvi_tpu_torch.state_to_numpy(cpu.state),
+                         STEP_RTOL, STEP_ATOL)
+    step_ms = sum(step_s[1:]) / (iters - 1) * 1e3
+    out = dict(
+        phase="main_path", path="SEPYFUX", codename="SEPYFUX",
+        experiment="stm300", iterations=iters, cut_to_61=iters != MAIN_ITERS,
+        first_step_s=step_s[0], step_ms=step_ms,
+        median_step_ms=statistics.median(step_s[1:]) * 1e3,
+        samples_per_s=N_DES_LARGE / (step_ms / 1e3), fevals=fevals[-1],
+        fevals_per_step=sorted(set(b - a for a, b in
+                                   zip([0] + fevals, fevals))),
+        launches=launches,
+        launches_per_step={k: v / iters for k, v in launches.items()},
+        num_active=int(st.model.num_active), state_finite=state_finite,
+        card_vs_cpu_step=SEPYFUX_COMPARED_STEP + 1,
+        card_vs_cpu_bar=f"rtol {STEP_RTOL} / atol {STEP_ATOL}",
+        card_vs_cpu_worst=cmp["worst"], card_vs_cpu_missed=cmp["missed"],
+        card_vs_cpu_ratios={k: v for k, v in cmp["ratios"].items()
+                            if v > 0},
+        peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    emit(out)
+    if fevals != [N_DES_LARGE * (i + 1) for i in range(iters)]:
+        raise AssertionError(f"SEPYFUX fevals are not 100 a step: {fevals}")
+    if not state_finite:
+        raise AssertionError("a non-finite state after the SEPYFUX path")
+    if out["num_active"] != 20:
+        raise AssertionError(f"fixed adaptation ended with "
+                             f"{out['num_active']} components")
+    if not (launches["densities_large"] >= 2 * iters
+            and launches["density_grads_large"] >= iters):
+        raise AssertionError(f"B5/B6 launches {launches} on the SEPYFUX "
+                             f"path")
+    for name in ("stein_smom", "density_pack", "densities", "tr_kl",
+                 "tr_search", "background_logpdf", "more_grams",
+                 "mixture_logpdf"):
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 "on the SEPYFUX path")
+    if cmp["missed"]:
+        raise AssertionError(f"the card's step {SEPYFUX_COMPARED_STEP + 1} "
+                             f"differs from the CPU's in {cmp['missed']}: "
+                             f"{cmp['ratios']}")
+    return launches
+
+
+def large_d_input_rows(captured, path: str = "stm300") -> dict:
     """B5 at each of its call sizes, B6 and B7 once more on the inputs of
-    their last launch in the stm300 run, against their plain versions at
-    the kernel phase's bars; fails on a miss.  B5's sizes: the step's four
-    (the pack and the weight update over the total window, the ESS pass
-    over the reuse window, the background over U ring rows at both), and
-    B9's two through B5 (the add heuristic's reservoir candidates, the ELBO
-    estimate's draws)."""
+    their last launch in a D = 300 run, against their plain versions at
+    the kernel phase's bars; fails on a miss.  On stm300 B5's sizes are
+    the step's four (the pack and the weight update over the total window,
+    the ESS pass over the reuse window, the background over U ring rows at
+    both) and B9's two through B5 (the add heuristic's reservoir
+    candidates, the ELBO estimate's draws); on SEPYFUX one (the pack and
+    the weight update over the step's 100 draws), without B7.  Returns per
+    kernel, per "path [entry] K=.. N=..", its numbers."""
     keys = sorted(k for k in captured if isinstance(k, tuple))
-    step_sizes = {(k[0], k[2]) for k in keys} & {
-        ("densities_large", N_REUSE_LARGE), ("densities_large", N_LARGE),
-        ("mixture_logpdf_large", N_REUSE_LARGE),
-        ("mixture_logpdf_large", N_LARGE)}
-    if len(step_sizes) != 4 or len(keys) != 6:
-        raise AssertionError(f"expected B5 at four step sizes and B9's two, "
-                             f"got {keys}")
-    measures = [(f"{key[0]}[K={key[1]},N={key[2]}]",
+    if path == "stm300":
+        step_sizes = {(k[0], k[2]) for k in keys} & {
+            ("densities_large", N_REUSE_LARGE), ("densities_large", N_LARGE),
+            ("mixture_logpdf_large", N_REUSE_LARGE),
+            ("mixture_logpdf_large", N_LARGE)}
+        if len(step_sizes) != 4 or len(keys) != 6:
+            raise AssertionError(f"expected B5 at four step sizes and B9's "
+                                 f"two, got {keys}")
+    elif keys != [("densities_large", KMAX_SEPYFUX, N_DES_LARGE)] \
+            or "stein_smom" in captured:
+        raise AssertionError(f"expected B5 at K = {KMAX_SEPYFUX}, N = "
+                             f"{N_DES_LARGE} alone and no B7 on the {path} "
+                             f"path, got {keys}, {sorted(captured, key=str)}")
+    measures = [("densities_large",
+                 f"{path} {key[0]} K={key[1]} N={key[2]}",
                  lambda key=key: measure_large_density(key[0], captured[key]))
                 for key in keys]
-    measures += [
-        ("density_grads_large",
-         lambda: measure_large_grads(captured["density_grads_large"])),
-        ("stein_smom", lambda: measure_stein(captured["stein_smom"]))]
-    for name, measure in measures:
-        out = measure()
-        emit({"phase": "kernel_on_main_path_inputs", "path": "stm300",
-              "name": name, **out})
-        if not out["ok"]:
+    measures += [("density_grads_large", path, lambda: measure_large_grads(
+        captured["density_grads_large"]))]
+    if path == "stm300":
+        measures += [("stein_smom", path,
+                      lambda: measure_stein(captured["stein_smom"]))]
+    out: dict = {}
+    for name, label, measure in measures:
+        row = measure()
+        emit({"phase": "kernel_on_main_path_inputs", "path": path,
+              "name": name, "label": label, **row})
+        if not row["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"on the stm300 path's inputs: {out}")
+                                 f"on the {path} path's inputs: {row}")
+        out.setdefault(name, {})[label] = {f: row[f] for f in PATH_FIELDS
+                                           if f in row}
+    return out
 
 
 def runner_config(max_components=None) -> dict:
@@ -1769,29 +2041,44 @@ def main() -> int:
     rows = kernel_phase(dev)
     flagship = ("density_pack", "densities", "tr_search")
     captured: dict = {}
+    captured_semidug: dict = {}
     captured_large: dict = {}
+    captured_sepyfux: dict = {}
     captured_runner: dict = {}
     searches: dict = {}
     densities: dict = {}
-    by_path = {"SAMTRON": main_path_phase(dev, "SAMTRON", flagship,
-                                          searches, densities),
+    samtron, samtron_fevals = main_path_phase(dev, "SAMTRON", flagship,
+                                              searches, densities)
+    by_path = {"SAMTRON": samtron,
                "ZAMTRUX": main_path_phase(
                    dev, "ZAMTRUX",
                    flagship + ("background_logpdf", "more_grams"), searches,
-                   densities, captured),
+                   densities, captured)[0],
                "stm300": large_d_phase(dev, captured_large),
                "gmm20": runner_phase(dev, captured_runner, searches,
-                                     densities)}
-    on_density_paths = density_path_rows(densities)
+                                     densities),
+               "SEPYFUX": sepyfux_phase(dev, captured_sepyfux),
+               "SEMIDUG": main_path_phase(
+                   dev, "SEMIDUG",
+                   ("density_pack", "densities", "background_logpdf"),
+                   searches, densities, captured_semidug)[0],
+               "SAMTRON-standard-IW": main_path_phase(
+                   dev, "SAMTRON-standard-IW", flagship, searches, densities,
+                   fevals_at=samtron_fevals)[0]}
+    on_paths = {**density_path_rows(densities),
+                "tr_search": search_rows(searches),
+                "background_logpdf": {
+                    **background_path_rows(captured, "ZAMTRUX"),
+                    **background_path_rows(captured_semidug, "SEMIDUG")}}
     main_path_input_rows(captured, searches["ZAMTRUX"])
-    large_d_input_rows(captured_large)
+    for path, large in (("stm300", captured_large),
+                        ("SEPYFUX", captured_sepyfux)):
+        for name, labels in large_d_input_rows(large, path).items():
+            on_paths.setdefault(name, {}).update(labels)
     runner_input_rows(captured_runner)
-    on_paths = search_rows(searches)
     for r in rows:
-        if r["name"] == "tr_search":
-            r["paths"] = on_paths
-        if r["name"] in on_density_paths:
-            r["paths"] = on_density_paths[r["name"]]
+        if r["name"] in on_paths:
+            r["paths"] = on_paths[r["name"]]
         # the flagship's count for B1-B3, the reuse path's for B4 and B8,
         # the stm300 path's for B5-B7, the runner path's for B9
         path = ("SAMTRON" if r["name"] in flagship else

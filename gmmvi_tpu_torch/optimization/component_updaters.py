@@ -1,9 +1,15 @@
-"""Natural-gradient component updates: the KL trust-region update.
+"""Natural-gradient component updates: direct (codename letter I), iBLR
+(Y) and the KL trust-region update (T).
 
 (JAX counterpart: gmmvi_tpu/optimization/component_updaters.py, the
-full-covariance bracket path ``_trust_region_update_pallas``)
+full-covariance paths: ``direct_update``, ``iblr_update`` and the bracket
+path ``_trust_region_update_pallas``)
 
-Every component's stepsize eta is found by the reference's log-space
+The direct and iBLR updates take one step in precision space at the
+component's stepsize and rebuild the factors from one Cholesky of the
+flipped precision; a component whose new precision is not positive
+definite keeps its parameters.  In the trust-region update every
+component's stepsize eta is found by the reference's log-space
 bisection.  For D <= 64 the whole search is one call of
 :func:`gmmvi_tpu_torch.ops.trust_region.tr_search` (kernel B3 on the card,
 one block per component running its own bracket to its end, no host
@@ -15,8 +21,7 @@ JAX package keeps that one in XLA: ``_tr_whitened_precompute`` and
 ``_tr_kl_whitened_trip``, selected where its kernel's envelope ends).  The
 accepted update is rebuilt at the found eta from one Cholesky of the
 flipped precision.  Failures are success masks: a failed component keeps
-its parameters.  The direct and iBLR updaters and the other searches are
-not ported yet.
+its parameters.  The searches other than ``bracket`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -70,11 +75,88 @@ def _chol_pair_from_prec(new_prec: torch.Tensor):
     """Lower Cholesky factor of ``inv(new_prec)`` and its inverse from one
     Cholesky: with ``Lt = chol(flip(P))``, ``chol(P^-1) = flip(Lt^-T)`` and
     its inverse is ``flip(Lt^T)``.  NaN in both where ``new_prec`` is not
-    positive definite."""
-    lt = _cholesky_or_nan(new_prec.flip(-2, -1))
+    positive definite.  ``P`` is symmetrized first, as
+    ``jnp.linalg.cholesky`` does (exact on a symmetric ``P``; the Hessian of
+    the standard-IW Stein estimate is not symmetric)."""
+    lt = _cholesky_or_nan(0.5 * (new_prec + new_prec.mT).flip(-2, -1))
     new_chol = tril_inverse(lt).mT.flip(-2, -1)
     new_inv_chol = lt.mT.flip(-2, -1)
     return new_chol, new_inv_chol
+
+
+def _old_canonical(model: GmmState):
+    """Precisions ``L^-T L^-1`` and linear terms ``Lam mu`` of the
+    components, from the cached inverse factors."""
+    old_prec = torch.einsum("kji,kjl->kil", model.inv_chols, model.inv_chols)
+    return old_prec, torch.einsum("kij,kj->ki", old_prec, model.means)
+
+
+def _select_update(model: GmmState, success, new_means, new_chols,
+                   new_inv_chols):
+    """The new parameters where ``success`` and active, else the old."""
+    sel = success & model.mask
+    return (torch.where(sel[:, None], new_means, model.means),
+            torch.where(sel[:, None, None], new_chols, model.chols),
+            torch.where(sel[:, None, None], new_inv_chols, model.inv_chols))
+
+
+def direct_update(model: GmmState, meta: MetaState,
+                  hessians_neg: torch.Tensor, grads_neg: torch.Tensor,
+                  stepsizes: torch.Tensor, temperature: float = 1.0
+                  ) -> ComponentUpdateResult:
+    """A natural-gradient step in precision space, ``P' = P + s H`` and
+    ``P' mu' = P mu + s (H mu - g)``; the mean is solved with the new
+    factors, ``mu' = L' L'^T (P' mu')``.  A component fails where the new
+    factor or mean has a NaN."""
+    _full_cov_only(model)
+    old_prec, old_lin = _old_canonical(model)
+    s = stepsizes
+    delta_lin = torch.einsum("kij,kj->ki", hessians_neg, model.means) \
+        - grads_neg
+    new_prec = old_prec + s[:, None, None] * hessians_neg
+    new_lin = old_lin + s[:, None] * delta_lin
+    new_chol, new_inv_chol = _chol_pair_from_prec(new_prec)
+    new_mean = torch.einsum("kij,kj->ki", new_chol,
+                            torch.einsum("kji,kj->ki", new_chol, new_lin))
+    success = ~(torch.isnan(new_chol).any(dim=(-2, -1))
+                | torch.isnan(new_mean).any(dim=-1))
+    means, chols, inv_chols = _select_update(model, success, new_mean,
+                                             new_chol, new_inv_chol)
+    return _finish_update(model, meta, means, chols, success,
+                          new_inv_chols=inv_chols)
+
+
+def iblr_update(model: GmmState, meta: MetaState,
+                hessians_neg: torch.Tensor, grads_neg: torch.Tensor,
+                stepsizes: torch.Tensor, temperature: float = 1.0
+                ) -> ComponentUpdateResult:
+    """The improved Bayesian learning rule: ``P' = P + s (H + s/2 H Sigma
+    H)`` (the curvature correction keeps ``P'`` positive definite) and
+    ``mu' = mu - s Sigma g``, with no mean step on a component's first
+    update.  A component fails where the new factor has a NaN."""
+    _full_cov_only(model)
+    old_prec, _ = _old_canonical(model)
+    s = stepsizes
+    first = meta.num_received_updates == 0
+    cov = model.chols @ model.chols.mT
+    correction = 0.5 * s[:, None, None] * (hessians_neg @ cov
+                                           @ hessians_neg)
+    new_prec = old_prec + s[:, None, None] * (hessians_neg + correction)
+    mean_step = s[:, None] * torch.einsum("kij,kj->ki", cov, -grads_neg)
+    new_mean = torch.where(first[:, None], model.means,
+                           model.means + mean_step)
+    new_chol, new_inv_chol = _chol_pair_from_prec(new_prec)
+    success = ~torch.isnan(new_chol).any(dim=(-2, -1))
+    means, chols, inv_chols = _select_update(model, success, new_mean,
+                                             new_chol, new_inv_chol)
+    return _finish_update(model, meta, means, chols, success,
+                          new_inv_chols=inv_chols)
+
+
+def _full_cov_only(model: GmmState) -> None:
+    if model.diagonal:
+        raise NotImplementedError(
+            "diagonal covariances are not ported yet (full covariances only)")
 
 
 def _tr_final_full(eta, old_lin, old_prec, old_inv_chol, reward_lin,
@@ -156,12 +238,13 @@ def trust_region_update(model: GmmState, meta: MetaState,
         raise NotImplementedError(
             f"trust-region search '{search}' is not ported yet (the port "
             "has 'bracket')")
-    if model.diagonal:
-        raise NotImplementedError(
-            "diagonal covariances are not ported yet (full covariances only)")
+    _full_cov_only(model)
     means, chols, inv_chols = model.means, model.chols, model.inv_chols
-    reward_quad = hessians_neg
-    reward_lin = torch.einsum("kij,kj->ki", reward_quad, means) - grads_neg
+    reward_lin = torch.einsum("kij,kj->ki", hessians_neg, means) - grads_neg
+    # the search and the rebuild see the symmetric part of the quadratic
+    # term, as jnp.linalg.cholesky does (exact where it is symmetric; the
+    # standard-IW Stein Hessian is not)
+    reward_quad = 0.5 * (hessians_neg + hessians_neg.mT)
     inp = prepare_tr_kl_inputs(means, chols, inv_chols, reward_lin,
                                reward_quad)
     last = meta.last_etas
@@ -187,13 +270,15 @@ def trust_region_update(model: GmmState, meta: MetaState,
         inp.kl_const, means)
     success = success & (kl < F32_MAX)
 
-    sel = success & model.mask
-    new_means = torch.where(sel[:, None], new_means, means)
-    new_chols = torch.where(sel[:, None, None], new_chols, chols)
-    new_inv_chols = torch.where(sel[:, None, None], new_inv_chols, inv_chols)
+    new_means, new_chols, new_inv_chols = _select_update(
+        model, success, new_means, new_chols, new_inv_chols)
     etas = torch.where(success, eta, -1.0)
     return _finish_update(model, meta, new_means, new_chols, success,
                           etas=etas, new_inv_chols=new_inv_chols)
 
 
-UPDATERS = {"trust-region": trust_region_update}
+UPDATERS = {
+    "direct": direct_update,
+    "iBLR": iblr_update,
+    "trust-region": trust_region_update,
+}

@@ -8,9 +8,10 @@ runs eagerly: propose fresh samples (with sample reuse, after an ESS pass
 over the newest stored samples: kernels B4 and B2 on the card), evaluate the
 target, store them and take the current model's density pack (kernel B1;
 B4 again for the older generating distributions), estimate the natural
-gradient (Stein, or MORE through kernel B8), update components (kernel B3
-per bisection trip) and weights (kernel B2), then adapt the number of
-components.
+gradient (Stein, or MORE through kernel B8), update components (the
+trust region's search through kernel B3, or a direct or iBLR step) and
+weights (kernel B2), then adapt the number of components (VIPS) or keep it
+fixed.
 
 Every random draw of a step comes from the instance's ``torch.Generator``
 unless the caller passes a :class:`StepDraws` with its own.  The iteration
@@ -68,9 +69,12 @@ class TrainState:
 class StepDraws:
     """The random numbers one iteration consumes.
 
-    eps ``[Kmax, n_des, D]`` standard normal (fresh samples); rand_slots
-    ``[B]`` integers in [0, C) and accept_u ``[B]`` uniform in [0, 1) (the
-    reservoir); db_perm ``[n]`` distinct reservoir slots and add_a a 0-d
+    eps standard normal for the fresh samples: ``[Kmax, n_des, D]`` with
+    the component-based selector, ``[n_des, D]`` with the mixture-based
+    one, which also takes mapping ``[n_des]``, component indices drawn by
+    the weights; rand_slots ``[B]`` integers in [0, C) and accept_u ``[B]``
+    uniform in [0, 1) (the reservoir; B the proposal's size, ``Kmax n_des``
+    or ``n_des``); db_perm ``[n]`` distinct reservoir slots and add_a a 0-d
     uniform (an add).  The last two are read only when an add is due."""
 
     eps: torch.Tensor
@@ -78,6 +82,7 @@ class StepDraws:
     accept_u: torch.Tensor
     db_perm: Optional[torch.Tensor] = None
     add_a: Optional[torch.Tensor] = None
+    mapping: Optional[torch.Tensor] = None
 
 
 class GMMVI:
@@ -87,7 +92,8 @@ class GMMVI:
     def __init__(self, target_distribution: LNPDF, initial_state: TrainState,
                  temperature: float, selector_cfg: SelectorConfig,
                  estimator_type: str, estimator_cfg: dict,
-                 component_stepsize_type: str, component_stepsize_cfg: dict,
+                 updater_type: str, component_stepsize_type: str,
+                 component_stepsize_cfg: dict,
                  weight_updater_type: str, weight_updater_cfg: dict,
                  weight_stepsize_type: str, weight_stepsize_cfg: dict,
                  vips_cfg: Optional[VipsConfig], seed: int,
@@ -98,6 +104,7 @@ class GMMVI:
         self.selector_cfg = selector_cfg
         self.estimator_type = estimator_type
         self.estimator_cfg = dict(estimator_cfg)
+        self.updater_type = updater_type
         self.component_stepsize_type = component_stepsize_type
         self.component_stepsize_cfg = dict(component_stepsize_cfg)
         self.weight_updater_type = weight_updater_type
@@ -117,14 +124,21 @@ class GMMVI:
         model, db = self.state.model, self.state.db
         g, dev = self.generator, self.device
         n_des = self.selector_cfg.desired_samples_per_component
-        b = model.max_components * n_des
+        mapping = None
+        if self.selector_cfg.is_vips:
+            b = model.max_components * n_des
+            eps_shape = (model.max_components, n_des, model.num_dimensions)
+        else:
+            b = n_des
+            eps_shape = (n_des, model.num_dimensions)
+            mapping = gmm_ops.sample_categorical(model, n_des, g)
         c = db.reservoir_capacity
         draws = StepDraws(
-            eps=torch.randn((model.max_components, n_des,
-                             model.num_dimensions), generator=g, device=dev),
+            eps=torch.randn(eps_shape, generator=g, device=dev),
             rand_slots=torch.randint(0, c, (b,), generator=g, device=dev,
                                      dtype=torch.int32),
-            accept_u=torch.rand((b,), generator=g, device=dev))
+            accept_u=torch.rand((b,), generator=g, device=dev),
+            mapping=mapping)
         cfg = self.vips_cfg
         if cfg is not None and adapt_ops.add_is_due(cfg, iteration + 1):
             draws.db_perm = torch.randperm(c, generator=g, device=dev)[
@@ -146,7 +160,7 @@ class GMMVI:
 
     def _propose_phase(self, state: TrainState, draws: StepDraws):
         return sel_ops.propose(state.model, state.db, self.selector_cfg,
-                               draws.eps)
+                               draws.eps, draws.mapping)
 
     def _update_phase(self, state: TrainState, prop: sel_ops.Proposal,
                       lnpdfs: torch.Tensor, grads: torch.Tensor,
@@ -192,7 +206,7 @@ class GMMVI:
                 window.background_log_pdfs, window.target_lnpdfs,
                 window.target_grads, **est_kw)
         # 3. component update
-        model, meta = upd_ops.trust_region_update(
+        model, meta = upd_ops.UPDATERS[self.updater_type](
             model, meta, est.expected_hessians_neg,
             est.expected_gradients_neg, meta.stepsizes,
             temperature=self.temperature)
@@ -323,7 +337,6 @@ class GMMVI:
             reused_samples_per_component=reused,
             max_background_dists=int(tpu_cfg.get("max_background_dists",
                                                  default_bg)))
-        sel_ops.check_supported(selector_cfg)
 
         vips_cfg = None
         if config["num_component_adapter_type"] == "adaptive":
@@ -396,6 +409,7 @@ class GMMVI:
             target_distribution=target_distribution, initial_state=state,
             temperature=config["temperature"], selector_cfg=selector_cfg,
             estimator_type=config["ng_estimator_type"], estimator_cfg=est_cfg,
+            updater_type=config["ng_based_updater_type"],
             component_stepsize_type=config[
                 "component_stepsize_adapter_type"],
             component_stepsize_cfg=config[
@@ -407,16 +421,6 @@ class GMMVI:
             vips_cfg=vips_cfg, seed=seed, device=dev)
 
 
-# module slot -> the settings the port supports so far
-_SUPPORTED = {
-    "ng_estimator_type": ("Stein", "MORE"),
-    "sample_selector_type": ("component-based",),
-    "ng_based_updater_type": ("trust-region",),
-    "component_stepsize_adapter_type": ("improvement-based",),
-    "weight_updater_type": ("trust-region", "direct"),
-    "weight_stepsize_adapter_type": ("improvement_based", "fixed"),
-}
-
 # tpu.* settings whose other values select paths not ported yet
 _SUPPORTED_TPU = {
     "trust_region_search": ("bracket",),
@@ -427,17 +431,9 @@ _SUPPORTED_TPU = {
 
 
 def _check_supported(config: dict) -> None:
-    """Raise NotImplementedError naming the first module or setting of
-    ``config`` that this slice of the port does not have."""
-    for key, allowed in _SUPPORTED.items():
-        if config[key] not in allowed:
-            raise NotImplementedError(
-                f"{key}: '{config[key]}' is not ported yet (the port has "
-                f"{allowed})")
-    if config["num_component_adapter_type"] not in ("adaptive",):
-        raise NotImplementedError(
-            f"num_component_adapter_type: "
-            f"'{config['num_component_adapter_type']}' is not ported yet")
+    """Raise NotImplementedError naming the first setting of ``config``
+    that the port does not have yet (every module of the codename matrix
+    is ported, for full covariances)."""
     if config["model_initialization"].get("use_diagonal_covs", False):
         raise NotImplementedError(
             "diagonal covariances are not ported yet (full covariances only)")

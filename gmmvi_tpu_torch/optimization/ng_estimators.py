@@ -16,8 +16,10 @@ centred on the active means' centroid ``c`` against float cancellation, so
 the ``[Kmax, N, D]`` precision-times-difference array is never formed.  The
 moments ``sum_n w g (x - c)^T`` come from kernel B7 (``ops/stein.py``) for
 64 < D <= 512 and N >= 512, where the JAX package uses its kernel, and from
-its plain version elsewhere.  The Stein estimator with standard importance
-weights is not ported yet.
+its plain version elsewhere.  With standard importance weights the
+estimate is the reference's stable expectation instead: per output element
+a signed log-sum-exp over the samples, one component at a time
+(:func:`_stein_standard_iw`, plain torch, as in the JAX package).
 
 MORE fits every component's quadratic surrogate of the log ratios by
 importance-weighted ridge regression: the weighted normal equations of all
@@ -35,7 +37,11 @@ from gmmvi_tpu_torch.models.gmm import (DensityPack, GmmState, density_pack,
 from gmmvi_tpu_torch.ops import stein as stein_ops
 from gmmvi_tpu_torch.ops.more import more_grams
 from gmmvi_tpu_torch.ops.quadratic import solve_quadratic_normal_eqs
-from gmmvi_tpu_torch.ops.stable import masked_logsumexp
+from gmmvi_tpu_torch.ops.stable import (NEG_INF, masked_logsumexp,
+                                        signed_weighted_logsumexp)
+
+# elements of one [n, D, D] slab of the standard-IW Hessian's terms
+_STANDARD_IW_CHUNK = 1 << 24
 
 
 class NgEstimate(NamedTuple):
@@ -67,6 +73,64 @@ def _self_normalized(log_iw, mask):
     return w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-38)
 
 
+def _signed_lse_chunked(log_w: torch.Tensor, values_of, n: int,
+                        chunk: int) -> torch.Tensor:
+    """:func:`signed_weighted_logsumexp` over dim 0 of ``values_of(lo, hi)``
+    (rows ``lo:hi`` of the values) weighted by ``log_w[lo:hi]``, in chunks
+    of ``chunk`` rows: one pass for the maximum, one for the sum.  A single
+    chunk is the one-shot computation."""
+    if n <= chunk:
+        vals = values_of(0, n)
+        return signed_weighted_logsumexp(
+            log_w.reshape((n,) + (1,) * (vals.ndim - 1)), vals, dim=0)
+
+    def combined(lo, hi):
+        vals = values_of(lo, hi)
+        lw = log_w[lo:hi].reshape((hi - lo,) + (1,) * (vals.ndim - 1))
+        comb = lw + torch.log(torch.abs(vals))
+        return vals, torch.where(torch.isfinite(comb), comb, NEG_INF)
+
+    spans = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+    cmax = torch.stack([torch.amax(combined(lo, hi)[1], dim=0)
+                        for lo, hi in spans]).amax(dim=0)
+    cmax_safe = torch.where(torch.isfinite(cmax), cmax, 0.0)
+    total = 0.0
+    for lo, hi in spans:
+        vals, comb = combined(lo, hi)
+        total = total + torch.sum(torch.where(
+            torch.isfinite(comb),
+            torch.sign(vals) * torch.exp(comb - cmax_safe), 0.0), dim=0)
+    return torch.sign(total) * torch.exp(torch.log(torch.abs(total))
+                                         + cmax_safe)
+
+
+def _stein_standard_iw(model: GmmState, log_iw, mask, log_ratio_grads,
+                       samples):
+    """The Stein moments with standard importance weights, as the
+    reference's stable expectation: per output element a signed
+    log-sum-exp of ``log_iw + log|value|`` over the samples, divided by the
+    count of samples the component sees.  The Hessian's terms are
+    ``g[n, d] ptd[n, e]`` with ``ptd = Lam_o (x - mu_o)``, unsymmetrized;
+    they are made one component at a time, in chunks of samples, so the
+    ``[Kmax, N, D]`` and ``[N, D, D]`` arrays are never formed whole."""
+    n, d = samples.shape
+    counts = torch.clamp(mask.sum(dim=1, dtype=samples.dtype), min=1.0)
+    lam = model.inv_chols.mT @ model.inv_chols                   # [K, D, D]
+    chunk = max(1, _STANDARD_IW_CHUNK // (d * d))
+    hess, grad = [], []
+    for k in range(model.max_components):
+        lw = torch.where(mask[k], log_iw[k], NEG_INF)
+        grad.append(signed_weighted_logsumexp(
+            lw[:, None], log_ratio_grads, dim=0) / counts[k])
+
+        def terms(lo, hi, k=k):
+            ptd = (samples[lo:hi] - model.means[k]) @ lam[k].mT   # [n, D]
+            return log_ratio_grads[lo:hi, :, None] * ptd[:, None, :]
+
+        hess.append(_signed_lse_chunked(lw, terms, n, chunk) / counts[k])
+    return torch.stack(hess), torch.stack(grad)
+
+
 def stein_estimate(
     model: GmmState,
     samples: torch.Tensor,         # [N, D]
@@ -80,13 +144,10 @@ def stein_estimate(
     pack: Optional[DensityPack] = None,
     newest_mask: Optional[torch.Tensor] = None,
 ) -> NgEstimate:
-    """Stein's-lemma estimate with self-normalized importance weights (the
-    weights are normalized twice, as in the reference); the Hessian is
-    symmetrized."""
-    if not use_self_normalized_importance_weights:
-        raise NotImplementedError(
-            "the Stein estimator with standard importance weights is not "
-            "ported yet")
+    """Stein's-lemma estimate.  With self-normalized importance weights
+    (normalized twice, as in the reference) the Hessian is taken in moment
+    form and symmetrized; with standard ones it is the reference's stable
+    expectation, unsymmetrized (:func:`_stein_standard_iw`)."""
     if pack is None:
         pack = density_pack(model, samples)
     log_ratio_grads = target_grads - pack.model_grads             # [N, D]
@@ -94,6 +155,10 @@ def stein_estimate(
     log_iw, mask = _per_component_log_iw(
         model, pack.component_log_densities, background, sample_mask,
         mapping, only_use_own_samples, newest_mask)
+    if not use_self_normalized_importance_weights:
+        hess, grad = _stein_standard_iw(model, log_iw, mask,
+                                        log_ratio_grads, samples)
+        return NgEstimate(-hess, -grad)
     w = _self_normalized(log_iw, mask)
 
     grad = w @ log_ratio_grads                                    # [K, D]

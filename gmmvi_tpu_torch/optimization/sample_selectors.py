@@ -1,21 +1,24 @@
-"""Sample selection, VIPS (component-based), with or without sample reuse.
+"""Sample selection: VIPS (component-based) and Lin (mixture-based), with
+or without sample reuse.
 
 (JAX counterpart: gmmvi_tpu/optimization/sample_selectors.py)
 
 :func:`propose` takes the newest ``reused * Kmax`` samples of the database
-(with their background densities, kernel B4 on the card), estimates each
-component's effective sample size from self-normalized importance weights
-(kernel B2 for the component densities) and draws a full ``[Kmax, n_des]``
-batch of fresh samples of which the first ``max(1, n_des - n_eff)`` per
-active component are valid.  The target is evaluated between
-:func:`propose` and :func:`finalize_fused`, which stores the valid samples
-and returns the window with the current model's density pack.  The
-standard-normal draws come in as ``eps``, so a caller can inject them.  The
-mixture-based (Lin) selector is not ported yet.
+(with their background densities, kernel B4 on the card) and estimates
+effective sample sizes from self-normalized importance weights: VIPS one
+per component (kernel B2 for the component densities), Lin one for the
+whole mixture (kernel B9 for the mixture density).  VIPS then draws a full
+``[Kmax, n_des]`` batch of fresh samples of which the first ``max(1, n_des
+- n_eff)`` per active component are valid; Lin draws ``n_des`` samples from
+the mixture, of which the first ``max(1, n_des - n_eff)`` are valid.  The
+target is evaluated between :func:`propose` and :func:`finalize_fused`,
+which stores the valid samples and returns the window with the current
+model's density pack.  The random draws (standard normals, and Lin's
+component indices) come in as tensors, so a caller can inject them.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -70,33 +73,35 @@ def total_window_size(cfg: SelectorConfig, max_components: int) -> int:
     return reuse_window_size(cfg, max_components) + fresh
 
 
-def check_supported(cfg: SelectorConfig) -> None:
-    if not cfg.is_vips:
-        raise NotImplementedError(
-            "the mixture-based (Lin) sample selector is not ported yet")
-
-
 def propose(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
-            eps: torch.Tensor) -> Proposal:
-    """VIPS proposal: the ESS pass over the reuse window, then ``n_des``
-    draws ``mu_k + L_k eps`` per slot from the standard-normal ``eps``
-    ``[Kmax, n_des, D]``, of which the first ``max(1, n_des - n_eff_k)`` of
-    every active slot are valid."""
-    check_supported(cfg)
+            eps: torch.Tensor, mapping: Optional[torch.Tensor] = None
+            ) -> Proposal:
+    """The ESS pass over the reuse window, then the fresh draws.  VIPS:
+    ``mu_k + L_k eps`` per slot from the standard-normal ``eps`` ``[Kmax,
+    n_des, D]``, of which the first ``max(1, n_des - n_eff_k)`` of every
+    active slot are valid.  Lin: ``mu_m + L_m eps_i`` for the component
+    indices ``mapping`` ``[n_des]`` (drawn by the weights) and ``eps``
+    ``[n_des, D]``, of which the first ``max(1, n_des - n_eff)`` are
+    valid."""
     kmax, n_des = model.max_components, cfg.desired_samples_per_component
     dev = model.device
     w_reuse = reuse_window_size(cfg, kmax)
+    win = None
     if w_reuse > 0:
         win = db_ops.get_newest_samples(
             db, w_reuse, cfg.reused_samples_per_component * model.num_active,
             cfg.max_background_dists)
         num_reused = win.num_valid
+    else:
+        num_reused = torch.zeros((), dtype=torch.int32, device=dev)
+    if not cfg.is_vips:
+        return _propose_mixture(model, win, num_reused, n_des, eps, mapping)
+    if win is not None:
         n_eff = effective_samples(
             gmm_ops.component_log_densities_fast(model, win.samples),
             win.background_log_pdfs, win.valid)
         n_eff = torch.where(win.num_valid > 0, n_eff, 0)
     else:
-        num_reused = torch.zeros((), dtype=torch.int32, device=dev)
         n_eff = torch.zeros((kmax,), dtype=torch.int32, device=dev)
     counts = torch.where(model.mask, torch.clamp(n_des - n_eff, min=1), 0)
     fresh = gmm_ops.sample_from_components(model, eps)      # [Kmax, n, D]
@@ -111,6 +116,28 @@ def propose(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
     )
 
 
+def _propose_mixture(model: GmmState, win, num_reused: torch.Tensor,
+                     n_des: int, eps: torch.Tensor, mapping: torch.Tensor
+                     ) -> Proposal:
+    """Lin's proposal: one ESS for the mixture over the reuse window
+    (``win``, or None without reuse), ``n_des`` draws from the mixture."""
+    if win is not None:
+        n_eff = effective_samples(
+            gmm_ops.log_density(model, win.samples)[None, :],
+            win.background_log_pdfs, win.valid)[0]
+        n_eff = torch.where(win.num_valid > 0, n_eff, 0)
+    else:
+        n_eff = torch.zeros((), dtype=torch.int32, device=model.device)
+    count = torch.clamp(n_des - n_eff, min=1)
+    mapping = mapping.long()
+    fresh = model.means[mapping] + torch.einsum(
+        "nij,nj->ni", model.chols[mapping], eps)
+    return Proposal(
+        samples=fresh,
+        valid=torch.arange(n_des, device=model.device) < count,
+        mapping=mapping.to(torch.int32), num_reused=num_reused)
+
+
 def finalize_fused(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
                    iteration: int, proposal: Proposal,
                    target_lnpdfs: torch.Tensor, target_grads: torch.Tensor,
@@ -119,7 +146,6 @@ def finalize_fused(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
     window of the newest samples and the current model's density pack over
     it (kernel B1 on the card), shared by the background mixture and the
     natural-gradient estimator."""
-    check_supported(cfg)
     db = db_ops.add_samples(
         db, iteration, model, proposal.samples, proposal.valid,
         proposal.mapping, target_lnpdfs, target_grads, rand_slots, accept_u)

@@ -1,11 +1,11 @@
 """Stepsize adaptation for the component updates and the weight update.
 
-(JAX counterpart: gmmvi_tpu/optimization/stepsize_adapters.py, the
-improvement-based adapters, codename letters R and N, and the fixed weight
-stepsize, X)
+(JAX counterpart: gmmvi_tpu/optimization/stepsize_adapters.py)
 
-The decaying adapters and the fixed component stepsize are not ported
-yet.
+Component stepsizes: fixed (codename letter F), decaying (D) and
+improvement-based (R), vectorized over the padded component axis.  Weight
+stepsizes: fixed (X), decaying (G) and improvement-based (N), with their
+scalar state in :class:`WeightStepsizeState`.
 """
 from __future__ import annotations
 
@@ -20,6 +20,20 @@ from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.ops.stable import F32_MIN
 
 
+def fixed_component_stepsize(meta: MetaState, config: dict) -> torch.Tensor:
+    """The stepsizes stay at their initial values."""
+    return meta.stepsizes
+
+
+def decaying_component_stepsize(meta: MetaState, config: dict
+                                ) -> torch.Tensor:
+    """``s0 / (1 + n^exponent)`` per component, ``n`` the updates it has
+    received."""
+    return config["initial_stepsize"] / (
+        1.0 + torch.pow(meta.num_received_updates,
+                        config["annealing_exponent"]))
+
+
 def improvement_based_component_stepsize(meta: MetaState, config: dict
                                          ) -> torch.Tensor:
     """Grow a component's stepsize when its reward improved, else shrink."""
@@ -32,6 +46,8 @@ def improvement_based_component_stepsize(meta: MetaState, config: dict
 
 
 COMPONENT_STEPSIZE_ADAPTERS = {
+    "fixed": fixed_component_stepsize,
+    "decaying": decaying_component_stepsize,
     "improvement-based": improvement_based_component_stepsize,
 }
 
@@ -81,8 +97,20 @@ def fixed_weight_stepsize(state: WeightStepsizeState, model: GmmState,
     return state
 
 
+def decaying_weight_stepsize(state: WeightStepsizeState, model: GmmState,
+                             meta: MetaState, config: dict
+                             ) -> WeightStepsizeState:
+    """``s0 / (1 + n^exponent)``, ``n`` the weight updates so far.  The
+    reference's default exponent is 0.5 (its YAML marks it TODO); it is
+    kept."""
+    new = config["initial_stepsize"] / (
+        1.0 + torch.pow(state.num_updates, config["annealing_exponent"]))
+    return state.replace(stepsize=new, num_updates=state.num_updates + 1.0)
+
+
 # the weight adapter's name uses an underscore, as in the reference configs
 WEIGHT_STEPSIZE_ADAPTERS = {
     "fixed": fixed_weight_stepsize,
+    "decaying": decaying_weight_stepsize,
     "improvement_based": improvement_based_weight_stepsize,
 }

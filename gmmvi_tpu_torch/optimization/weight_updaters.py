@@ -1,14 +1,15 @@
 """Mixture-weight updates: the direct update and the KL trust-region update.
 
 (JAX counterpart: gmmvi_tpu/optimization/weight_updaters.py,
-``expected_log_ratios`` with self-normalized weights,
-``direct_weight_update`` and ``trust_region_weight_update``)
+``expected_log_ratios``, ``direct_weight_update`` and
+``trust_region_weight_update``)
 
 The expected log ratios are taken under the updated components (kernel B2
 on the card).  The weight search is the reference's log-space bisection
 over the tempered-softmax stepsize, at most 50 trips; its loop runs on the
-host and reads one "done" flag per trip.  Standard importance weights are
-not ported yet.
+host and reads one "done" flag per trip.  With standard importance
+weights the expected log ratios are the reference's stable expectation, a
+signed log-sum-exp over the samples.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from gmmvi_tpu_torch.models.gmm import (GmmState,
                                         log_densities_also_individual,
                                         normalize_log_weights)
 from gmmvi_tpu_torch.models.meta import MetaState
-from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
+from gmmvi_tpu_torch.ops.stable import (NEG_INF, masked_logsumexp,
+                                        signed_weighted_logsumexp)
 
 LOG_WEIGHT_FLOOR = -69.07  # weights floored at 1e-30
 MAX_TRIPS = 50
@@ -35,19 +37,21 @@ def expected_log_ratios(model: GmmState, meta: MetaState,
                         ) -> Tuple[torch.Tensor, MetaState]:
     """Per-component estimate of E_{q(x|o)}[log p(x) - T log q(x)]; stores
     the rewards T log w_o + E[log ratio] in the reward history."""
-    if not use_self_normalized_importance_weights:
-        raise NotImplementedError(
-            "the weight update with standard importance weights is not "
-            "ported yet")
     model_densities, comp_log_densities = log_densities_also_individual(
         model, samples)
     log_ratios = target_lnpdfs - temperature * model_densities
     log_iw = comp_log_densities - background[None, :]
     mask = sample_mask[None, :].expand(log_iw.shape)
-    log_w = log_iw - masked_logsumexp(log_iw, mask=mask, dim=1, keepdim=True)
-    w = torch.where(mask, torch.exp(log_w), 0.0)
-    w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-38)
-    elr = w @ log_ratios
+    if use_self_normalized_importance_weights:
+        log_w = log_iw - masked_logsumexp(log_iw, mask=mask, dim=1,
+                                          keepdim=True)
+        w = torch.where(mask, torch.exp(log_w), 0.0)
+        w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-38)
+        elr = w @ log_ratios
+    else:
+        n = torch.clamp(sample_mask.sum(dtype=log_ratios.dtype), min=1.0)
+        elr = (1.0 / n) * signed_weighted_logsumexp(
+            log_iw, log_ratios[None, :], dim=1, mask=mask)
     rewards = temperature * model.log_weights + elr
     rewards = torch.where(model.mask, rewards, meta.reward_history[:, -1])
     return elr, meta_ops.store_rewards(meta, rewards)

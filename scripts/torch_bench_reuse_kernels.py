@@ -313,8 +313,8 @@ def edge_density_inputs(u, d, n, gen, dev):
 
 
 def path_inputs(dev) -> dict:
-    """The arguments of B4's and B8's last launches on chip_smoke.py's
-    ZAMTRUX path."""
+    """The arguments of B4's last launch over the total window and of B8's
+    last launch on chip_smoke.py's ZAMTRUX path."""
     import chip_smoke as cs
 
     captured: dict = {}
@@ -322,7 +322,7 @@ def path_inputs(dev) -> dict:
                        ("density_pack", "densities", "tr_search",
                         "background_logpdf", "more_grams"), {}, {}, captured)
     return {"more": captured["more_grams"],
-            "background": captured["background_logpdf"]}
+            "background": captured[("background_logpdf", cs.N_WINDOW)]}
 
 
 def path_fevals(dev, variant: str, other) -> dict:

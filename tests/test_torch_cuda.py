@@ -202,12 +202,15 @@ def test_tr_search_kernel_equals_host_loop(dev, d):
 @pytest.mark.parametrize("u,d,n,n_masked", [
     (192, 20, 28800, 64), (7, 5, 600, 2), (70, 60, 520, 23),
     (5, 128, 77, 0), (1, 1, 33, 0), (4, 3, 10, 4), (300, 6, 1000, 150),
-    (2048, 20, 3000, 700)])
+    (2048, 20, 3000, 700), (192, 20, 19200, 0)])
 def test_background_kernel_matches_plain(dev, u, d, n, n_masked):
     """B4 against its plain version: rtol 1e-4 / atol 2e-4 (the Pallas
     kernel's bar); -inf in the same places (every row masked); two calls
     give the same bits (no atomics).  U = 2048 is the cap on
-    max_background_dists."""
+    max_background_dists.  U = 192 at N = 19,200 with every row live is
+    the ESS pass of SEMIDUG (and ZAMTRUX), whose window's old samples come
+    from more than 192 generating distributions; the first case is the
+    shape of their finalize pass."""
     from gmmvi_tpu_torch.ops import background as bops
     from gmmvi_tpu_torch.ops import cuda
 
@@ -794,6 +797,48 @@ def test_density_grads_tf32x3_dense_and_sparse(dev, d, sparse):
     live = float((resp > 0).double().mean())
     assert (live < 0.5) if sparse else (live > 0.5)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def test_large_kernels_at_sepyfux_shapes(dev):
+    """B5 and B6 at SEPYFUX's shapes on stm300: K = 24 slots of which 20
+    are active, N = 100 draws from the mixture, D = 300.  B5 at rtol 2e-4 /
+    atol 2e-3 and B6 at rtol / atol 2e-3 against their plain versions, each
+    with equal bits on two calls."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    k, d, n = 24, 300, 100
+    g = torch.Generator().manual_seed(24)
+    means = torch.randn(k, d, generator=g) * 30.0
+    a = torch.randn(k, d, d, generator=g)
+    chols = torch.linalg.cholesky(300.0 * (a @ a.mT / d + torch.eye(d)))
+    inv = torch.linalg.solve_triangular(chols, torch.eye(d).expand(k, d, d),
+                                        upper=False).contiguous()
+    logw = torch.log_softmax(torch.randn(k, generator=g), 0)
+    logw[20:] = -torch.inf
+    logdets = torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)).sum(-1)
+    comp_of = torch.multinomial(torch.exp(logw), n, replacement=True,
+                                generator=g)
+    x = means[comp_of] + torch.einsum("nij,nj->ni", chols[comp_of],
+                                      torch.randn(n, d, generator=g))
+    args = [t.to(dev) for t in (means, inv, logw, logdets, x)]
+    before = dict(cuda.LAUNCHES)
+    comp, model = dl.densities_large(*args)
+    comp2, model2 = dl.densities_large(*args)
+    comp_p, model_p = dl.densities_large_plain(*args)
+    gargs = [*args[:3], comp_p, model_p, args[4]]
+    grads = dl.density_grads_large(*gargs)
+    grads2 = dl.density_grads_large(*gargs)
+    grads_p = dl.density_grads_large_plain(*gargs)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["densities_large"] == before["densities_large"] + 2
+    assert cuda.LAUNCHES["density_grads_large"] == \
+        before["density_grads_large"] + 2
+    assert torch.equal(comp, comp2) and torch.equal(model, model2)
+    assert torch.equal(grads, grads2)
+    torch.testing.assert_close(comp, comp_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(model, model_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(grads, grads_p, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("n,live", [(16384, 24), (2000, 10)])

@@ -54,10 +54,30 @@ def zamtrux_overrides(ratio=2.0, **kw):
     return over
 
 
-def build_pair(dims=DIMS, codename="SAMTRON", ratio=None, **kw):
+def codename_overrides(codename, **kw):
+    """The small-run overrides of :func:`samtron_overrides` (ZAMTRUX: of
+    :func:`zamtrux_overrides`) for any codename; with fixed adaptation (the
+    E letter) without the VIPS settings, as scripts/compare_reference.py
+    builds it."""
+    over = (zamtrux_overrides if codename == "ZAMTRUX"
+            else samtron_overrides)(**kw)
+    if codename[1].upper() == "E":
+        del over["num_component_adapter_config"]
+    return over
+
+
+def standard_iw_overrides():
+    """Standard (not self-normalized) importance weights in the estimator
+    and the weight updater."""
+    return {section: {"use_self_normalized_importance_weights": False}
+            for section in ("ng_estimator_config", "weight_updater_config")}
+
+
+def build_pair(dims=DIMS, codename="SAMTRON", ratio=None, extra=None, **kw):
     """(jax_gmmvi, torch_gmmvi) on the same Student-T target and the same
-    initial mixture, both on the CPU; ``codename`` SAMTRON or ZAMTRUX with
-    its overrides above, ``ratio`` (when given) the sample reuse."""
+    initial mixture, both on the CPU; ``codename`` with its overrides
+    above, ``ratio`` (when given) the sample reuse, ``extra`` further
+    overrides."""
     import gmmvi_tpu.configs as jcfg
     from gmmvi_tpu.experiments.setup import init_experiment as j_init
     from gmmvi_tpu.experiments.targets.student_t_mixture import \
@@ -70,11 +90,12 @@ def build_pair(dims=DIMS, codename="SAMTRON", ratio=None, **kw):
         make_target as t_target
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI as TGMMVI
 
-    over = (zamtrux_overrides if codename == "ZAMTRUX"
-            else samtron_overrides)(**kw)
+    over = codename_overrides(codename, **kw)
     if ratio is not None:
         over["sample_selector_config"]["ratio_reused_samples_to_desired"] = \
             ratio
+    if extra:
+        over = tcfg.update_config(over, extra)
     jt = j_target(dims, False, seed=0)
     jc = jcfg.update_config(jcfg.get_default_algorithm_config(codename),
                             over)
@@ -94,12 +115,15 @@ def build_pair(dims=DIMS, codename="SAMTRON", ratio=None, **kw):
 def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     """The random numbers JAX's next ``_full_step`` consumes, recomputed
     from its key with the same splits (gmmvi.py ``_propose_phase`` and
-    ``_update_phase``, sample_db.add_samples, add_new_component), as a
-    StepDraws for the port.  ``key`` and ``kmax`` (the state's key and
-    padded capacity by default) let a caller recompute a step's draws after
-    the step, at the capacity it grew to first.  ``dtype`` is the state's
-    float type (JAX draws its normals in it; under ``jax.enable_x64`` its
-    uniforms are float64 too)."""
+    ``_update_phase``, sample_selectors.propose, sample_db.add_samples,
+    add_new_component), as a StepDraws for the port.  ``key`` and ``kmax``
+    (the state's key and padded capacity by default) let a caller recompute
+    a step's draws after the step, at the capacity it grew to first.
+    ``dtype`` is the state's float type (JAX draws its normals in it; under
+    ``jax.enable_x64`` its uniforms are float64 too).  The mixture-based
+    selector draws ``n_des`` component indices by the state's weights and
+    ``[n_des, D]`` normals; without VIPS nothing is drawn for an add."""
+    from gmmvi_tpu.models import gmm as jgmm
     from gmmvi_tpu_torch import StepDraws
 
     st = jax_gmmvi.state
@@ -107,24 +131,36 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     kmax = st.model.max_components if kmax is None else kmax
     d = st.model.num_dimensions
     n_des = jax_gmmvi.selector_cfg.desired_samples_per_component
-    b, c = kmax * n_des, st.db.reservoir_capacity
-    n_db = jax_gmmvi.vips_cfg.num_database_samples
+    c = st.db.reservoir_capacity
     key1, k_sel = jax.random.split(key)
-    eps = jax.random.normal(k_sel, (kmax, n_des, d), dtype)
+    mapping = None
+    if jax_gmmvi.selector_cfg.is_vips:
+        b = kmax * n_des
+        eps = jax.random.normal(k_sel, (kmax, n_des, d), dtype)
+    else:
+        b = n_des
+        cat_key, eps_key = jax.random.split(k_sel)
+        mapping = jgmm.sample_categorical(st.model, cat_key, n_des)
+        eps = jax.random.normal(eps_key, (n_des, d), dtype)
     _, k_db, k_adapt = jax.random.split(key1, 3)
     slot_key, acc_key = jax.random.split(k_db)
     rand_slots = jax.random.randint(slot_key, (b,), 0, c)
     accept_u = jax.random.uniform(acc_key, (b,))
-    db_key, a_key = jax.random.split(k_adapt)
-    perm = jax.random.permutation(db_key, c)[:n_db]
-    a = jax.random.uniform(a_key, ())
 
     def t(x, dtype=None):
         return torch.as_tensor(np.array(x), dtype=dtype)
 
-    return StepDraws(eps=t(eps), rand_slots=t(rand_slots, torch.int32),
-                     accept_u=t(accept_u), db_perm=t(perm, torch.int64),
-                     add_a=t(a))
+    draws = StepDraws(eps=t(eps), rand_slots=t(rand_slots, torch.int32),
+                      accept_u=t(accept_u))
+    if mapping is not None:
+        draws.mapping = t(mapping, torch.int64)
+    if jax_gmmvi.vips_cfg is not None:
+        db_key, a_key = jax.random.split(k_adapt)
+        n_db = jax_gmmvi.vips_cfg.num_database_samples
+        draws.db_perm = t(jax.random.permutation(db_key, c)[:n_db],
+                          torch.int64)
+        draws.add_a = t(jax.random.uniform(a_key, ()))
+    return draws
 
 
 @contextlib.contextmanager
