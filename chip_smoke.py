@@ -55,8 +55,20 @@ printing one JSON line:
    kernels B1, B2 and B4, no search; held to 45 components, a finite state
    and an improving fit); SAMTRON with standard importance weights for 30
    iterations (B1, B2, B3's search; held to a finite state and the
-   self-normalized run's fevals at every step).  Every path prints its
-   median step ms, fevals and launch counts;
+   self-normalized run's fevals at every step).  Then the paper's
+   experiments through the runner, ``GmmviRunner.build_from_config(
+   get_default_config("SAMTRON", e))`` with nothing cut: breast_cancer
+   (D = 31, one component in 24 slots grown by VIPS, 1,000 iterations, an
+   evaluation every 50; held to an ELBO rising to at least -79.0, the JAX
+   package's CPU run of the same config ending at -78.36), german_credit
+   (D = 25, 300 iterations; at least -585.6, JAX -585.11), breast_cancer_mb
+   (the host-shuffled minibatch target with autograd, 30 iterations; held
+   to finite metrics and fevals) and planar_robot_4 (D = 10, 300 initial
+   components in Kmax = 600 slots, U = 2,048 background rows, 300
+   iterations, 130 if the median step passes 150 ms; held to a mode at
+   each of the four goals), each with B1, B2, B3's search, B4 and B9
+   launched.  Every path prints its median step ms, fevals and launch
+   counts;
 5. every kernel once more, on the inputs of its last launch: B1 and B2 at
    each of their call sizes on each D = 20 path (SAMTRON; ZAMTRUX, B2 over
    the reuse and the total window; the runner, B1 over the GMM target's
@@ -68,12 +80,26 @@ printing one JSON line:
    and B3's fused search on its last inputs on each D <= 64 path
    (SAMTRON, ZAMTRUX, the runner); on the new paths B1 and B2 (SEMIDUG,
    standard-IW SAMTRON), B4 at both sizes (SEMIDUG), B5 and B6 (SEPYFUX)
-   and B3's fused search (standard-IW SAMTRON); each against its plain
-   version at the bar of phase 3, timed as there.
+   and B3's fused search (standard-IW SAMTRON); on the paper's experiments
+   B1, B2 and B3's fused search at each call size, B4 at both and B9 at
+   each; each against its plain version at the bar of phase 3, timed as
+   there, but for the paper's B1, B2 and B3 rows, held entry by entry
+   against the plain version in float64 within the bar plus the entry's
+   first-order float32 error bound (B3: its per-trip KL at every eta the
+   search visited), since on these posteriors float32 rounding of log
+   densities of 1e3-1e5 moves the gradient by up to 1e4 bars in any
+   float32 arithmetic;
+6. diagonal covariances: SAMTRON with ``get_default_config("SAMTRON",
+   "stm300")``'s settings and ``use_diagonal_covs`` on the 300-D diagonal
+   GMM target, through ``GMMVI.build_from_config`` and ``train_iter`` for
+   130 iterations; held to no kernel launch (a diagonal model is plain
+   torch, as in the JAX package), a finite state, a rising ELBO and step
+   21 on the card equal to the same step on the CPU, leaf by leaf at the
+   one-step bar (rtol 1e-4 / atol 1e-5).
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
-B5-B7, the runner for B9; the ``paths`` of B1-B6: their numbers on each
+B5-B7, the runner for B9; the ``paths`` of B1-B6 and B9: their numbers on each
 path's last inputs), the card's name and power limit as
 ``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
 Nothing is caught: any failure exits non-zero before that line.  Without
@@ -112,8 +138,11 @@ REUSE_PATHS = ("ZAMTRUX", "SEMIDUG")
 STANDARD_IW_ITERS = 30
 # the paths of B1 and B2 (D <= 128), and of the fused search (D <= 64)
 DENSITY_PATHS = ("SAMTRON", "ZAMTRUX", "gmm20", "SEMIDUG",
-                 "SAMTRON-standard-IW")
-SEARCH_PATHS = ("SAMTRON", "ZAMTRUX", "gmm20", "SAMTRON-standard-IW")
+                 "SAMTRON-standard-IW", "breast_cancer", "german_credit",
+                 "breast_cancer_mb", "planar_robot_4")
+SEARCH_PATHS = ("SAMTRON", "ZAMTRUX", "gmm20", "SAMTRON-standard-IW",
+                "breast_cancer", "german_credit", "breast_cancer_mb",
+                "planar_robot_4")
 # stm300 (SAMTRON's defaults): Kmax 40 = max(2 x 20, 20 + 16) rounded to 8,
 # 100 fresh and 200 reused samples per component
 D_LARGE, KMAX_LARGE, N_DES_LARGE = 300, 40, 100
@@ -132,6 +161,24 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 RUNNER_ITERS, RUNNER_STEP_MS_CAP, RUNNER_ITERS_CUT = 1500, 60.0, 600
 RUNNER_RESUME_STEPS = 20
 N_EVAL, N_CANDIDATES = 2000, 16384      # B9's two call sizes on that path
+# the paper's experiments through the runner, get_default_config("SAMTRON",
+# experiment) with nothing cut: iterations, and (D, Kmax, n_des, reused,
+# max_background_dists, log_metrics_interval) as built
+PAPER_PATHS = {
+    "breast_cancer": (1000, (31, 24, 100, 200, 96, 50)),
+    "german_credit": (300, (25, 24, 100, 200, 96, 20)),
+    "breast_cancer_mb": (30, (31, 24, 100, 200, 96, 20)),
+    "planar_robot_4": (300, (10, 600, 100, 200, 2048, 10)),
+}
+PLANAR_STEP_MS_CAP, PLANAR_ITERS_CUT = 150.0, 130
+# the last evaluation's ELBO must reach these: the JAX package's CPU runs
+# of the same config (scripts/jax_experiment_reference.py) end at -78.36
+# (breast_cancer, iteration 950) and -585.11 (german_credit, 280)
+ELBO_FLOOR = {"breast_cancer": -79.0, "german_credit": -585.6}
+# diagonal SAMTRON: stm300's defaults with diagonal covariances on the
+# 300-D diagonal GMM target; step 21 on the card against the CPU at the
+# one-step bar
+DIAG_COMPARED_STEP, DIAG_RTOL, DIAG_ATOL = 20, 1e-4, 1e-5
 
 
 def emit(obj) -> None:
@@ -238,6 +285,41 @@ def sass_phase() -> dict:
     if missing:
         raise AssertionError(f"no HGMMA in the SASS of {missing}")
     return out
+
+
+# the plain versions make [rows, N, D] intermediates; above this many
+# elements they run over slices of the samples (each sample's outputs are
+# its own) and are timed with fewer calls
+PLAIN_SLICE_ELEMS = 1 << 30
+# float32's unit roundoff; the float64 references of the paper paths' rows
+# run over slices of the samples of at most this many [K, n, D] elements
+U32 = 2.0 ** -24
+BOUND_SLICE_ELEMS = 1 << 26
+
+
+def plain_runner(plain, args, rows: int):
+    """``(fn, reps, sliced)``: ``plain`` on ``args`` (samples last, ``rows``
+    mixture rows), over slices of the samples where the whole
+    intermediate would pass ``PLAIN_SLICE_ELEMS`` elements (outputs
+    concatenated along the samples: a single ``[N]`` output, or B1's and
+    B2's ``(comp [rows, N], model [N], grads [N, D])``), and the device_ms
+    repetitions to time it with."""
+    import torch
+
+    x = args[-1]
+    n, d = x.shape
+    if rows * n * d <= PLAIN_SLICE_ELEMS:
+        return (lambda: plain(*args)), dict(), False
+    step = max(1, PLAIN_SLICE_ELEMS // (rows * d))
+
+    def sliced():
+        parts = [plain(*args[:-1], x[lo:lo + step])
+                 for lo in range(0, n, step)]
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts)
+        return tuple(torch.cat(p, dim=1 if i == 0 else 0)
+                     for i, p in enumerate(zip(*parts)))
+    return sliced, dict(reps=3, batch=2), True
 
 
 def max_err(got, want, atol: float, rtol: float):
@@ -400,8 +482,10 @@ def measure_background(args) -> dict:
 
     from gmmvi_tpu_torch.ops import background as bops
 
+    plain, reps, sliced = plain_runner(bops.background_logpdf_plain, args,
+                                       args[0].shape[0])
     got = bops.background_logpdf(*args)
-    want = bops.background_logpdf_plain(*args)
+    want = plain()
     same_bits = bool(torch.equal(got, bops.background_logpdf(*args)))
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
@@ -417,8 +501,7 @@ def measure_background(args) -> dict:
     return dict(max_abs_err=err, ok=ok and same_bits, same_bits=same_bits,
                 rows=u, live_rows=live, samples=n,
                 ms=device_ms(lambda: bops.background_logpdf(*args)),
-                plain_ms=device_ms(lambda: bops.background_logpdf_plain(
-                    *args)),
+                plain_ms=device_ms(plain, **reps), plain_sliced=sliced,
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -586,25 +669,144 @@ def density_bound(name, args, want) -> dict:
                 **({"responsible_pairs": pairs} if grads else {}))
 
 
-def measure_density(name, args) -> dict:
+def measure_density(name, args, against_float64: bool = False) -> dict:
     """B1 (``density_pack``) or B2 (``densities``) on ``args`` against its
-    plain version (``density_check``), device times and the bound these
-    inputs need (``density_bound``)."""
+    plain version (``density_check``), or with ``against_float64`` (the
+    paper's paths) entry by entry against the plain version in float64
+    (``density_vs_float64``); device times and the bound these inputs need
+    (``density_bound``)."""
     import torch
 
     from gmmvi_tpu_torch.ops import density as dops
 
-    fn, plain = getattr(dops, name), getattr(dops, name + "_plain")
+    fn = getattr(dops, name)
+    means, _, logw, _, x = args
+    plain, reps, sliced = plain_runner(getattr(dops, name + "_plain"), args,
+                                       means.shape[0])
     got = fn(*args)
     again = fn(*args)
-    want = plain(*args)
+    want = plain()
     torch.cuda.synchronize()
-    means, _, logw, _, x = args
-    return dict(**density_check(got, again, want), components=means.shape[0],
+    check = (density_vs_float64(args, got, again, want) if against_float64
+             else density_check(got, again, want))
+    return dict(**check, components=means.shape[0],
                 live_components=int((logw > -math.inf).sum()),
                 samples=x.shape[0], **density_bound(name, args, want),
                 ms=device_ms(lambda: fn(*args)),
-                plain_ms=device_ms(lambda: plain(*args)))
+                plain_ms=device_ms(plain, **reps), plain_sliced=sliced)
+
+
+def gamma(n: int) -> float:
+    """The bound n u / (1 - n u) on the relative error of n float32
+    roundings in a row (Higham, Accuracy and Stability of Numerical
+    Algorithms, 2nd ed., section 3.1)."""
+    return n * U32 / (1 - n * U32)
+
+
+def density_float64(args, grads: bool):
+    """The plain version of B1 (``grads``) or B2 in float64 on ``args``,
+    and per output entry ``s``, the first-order bound of how far float32
+    arithmetic on these inputs can move it through what the outputs
+    amplify, whatever the order of its sums: each whitened coordinate
+    y = L (x - mu) is off by at most gamma(D+1) (|L| |x - mu|), so a log
+    density by s_comp = gamma(D+1) sum |y| |L||x - mu| + gamma(D) q/2 +
+    gamma(3) (q/2 + |const|); a responsibility r_k moves by
+    r_k (dw_k - sum_j r_j dw_j) with dw_k = s_comp + u (|comp| + |log w|),
+    so the gradient by sum_k r_k dw_k |v_k + grad|, v_k = L^T y; each v by
+    gamma(D+1) |L|^T |L||x - mu| + gamma(D) |L|^T |y|; and by the rounding
+    of the sums, the exponentials, the model's own value (a float32 log
+    density of 5e3 is off by up to 2.4e-4) and B1's online rescaling (at
+    most K/4 rescales a group and the four groups' combine), gamma(3K + 32)
+    + 2u (|w_k - model| + |model|) of sum_k r_k |v_k|.  Runs over slices of
+    the samples.  Returns ``(refs, bounds)``, each (comp, model[, grads])."""
+    import torch
+
+    from gmmvi_tpu_torch.ops.density import LOG_2PI
+    from gmmvi_tpu_torch.ops.stable import masked_logsumexp
+
+    means, chol, logw, logdet, x = [a.double() for a in args]
+    k, d = means.shape
+    step = max(1, BOUND_SLICE_ELEMS // (k * d))
+    live = (logw > -math.inf)[:, None]
+    absl = chol.abs()
+    const = (-logdet - 0.5 * d * LOG_2PI)[:, None]
+    rho_sums = gamma(3 * k + 32)
+    parts = []
+    for lo in range(0, x.shape[0], step):
+        diff = x[lo:lo + step][None] - means[:, None]            # [K, n, D]
+        y = torch.einsum("kij,knj->kni", chol, diff)
+        a = torch.einsum("kij,knj->kni", absl, diff.abs())
+        q = torch.sum(y * y, -1)
+        comp = -0.5 * q + const
+        s_comp = gamma(d + 1) * torch.sum(y.abs() * a, -1) \
+            + 0.5 * gamma(d) * q + gamma(3) * (0.5 * q + const.abs())
+        w = comp + logw[:, None]
+        model = masked_logsumexp(w, mask=live, dim=0)
+        r = torch.where(live, torch.exp(w - model), 0.0)
+        s_w = torch.where(live, s_comp + U32 * (comp.abs()
+                                                + logw.abs()[:, None]), 0.0)
+        part = [comp, s_comp, model,
+                torch.sum(r * s_w, 0) + gamma(k + 4) + U32 * model.abs()]
+        if grads:
+            v = torch.einsum("kji,knj->kni", chol, y)
+            g = -torch.sum(r[..., None] * v, 0)
+            s_v = gamma(d + 1) * torch.einsum("kji,knj->kni", absl, a) \
+                + gamma(d) * torch.einsum("kji,knj->kni", absl, y.abs())
+            rho = rho_sums + 2 * U32 * torch.where(
+                live, (w - model).abs() + model.abs(), 0.0)
+            part += [g, torch.sum(r[..., None] * (
+                s_w[..., None] * (v + g).abs() + s_v
+                + rho[..., None] * v.abs()), 0)]
+        parts.append(part)
+    cols = [torch.cat(c, 1 if i < 2 else 0)
+            for i, c in enumerate(zip(*parts))]
+    return cols[0::2], cols[1::2]
+
+
+def density_vs_float64(args, got, again, want) -> dict:
+    """B1's or B2's outputs ``got`` held entry by entry against the plain
+    version in float64 on the same inputs: |got - ref| <= bar + s, the bar
+    atol 5e-4 + rtol 1e-5 of ``ref`` and ``s`` the entry's float32 bound
+    (``density_float64``); NaN, +inf and -inf in ``ref``'s places, and
+    equal bits with a second call's ``again``.  On the paper's posteriors
+    the log densities of samples far out in a component's tail reach
+    1e3-1e5, and float32 rounding of two components' shares of such a
+    sample moves the mixture gradient by up to 1e4 bars in any float32
+    arithmetic; there ``s`` is large, elsewhere it is a fraction of the
+    bar.  The float32 plain version ``want`` is held to the same bound,
+    a check of the bound.  Per output: the kernel's max |error|, its and
+    the plain version's worst error over the bound, the entries where the
+    kernel misses the bar, those whose bound passes the bar and the
+    bound's median over the bar."""
+    import torch
+
+    refs, bounds = density_float64(args, len(got) == 3)
+    out, ok, places = {}, True, True
+    for label, gv, pv, rv, sv in zip(("comp", "model", "grads"), got, want,
+                                     refs, bounds):
+        for where in (torch.isnan, torch.isposinf, torch.isneginf):
+            places &= torch.equal(where(gv), where(rv))
+        fin = torch.isfinite(rv)
+        if not bool(fin.any()):
+            raise AssertionError("an empty comparison: nothing was checked")
+        rv, sv = rv[fin], sv[fin]
+        bar = 5e-4 + 1e-5 * rv.abs()
+        tol = bar + sv
+        ek = (gv[fin].double() - rv).abs()
+        ep = (pv[fin].double() - rv).abs()
+        out[label] = dict(
+            max_abs_err=float(ek.max()),
+            worst_over_bound=float((ek / tol).max()),
+            plain_worst_over_bound=float((ep / tol).max()),
+            beyond_bar=int((ek > bar).sum()),
+            bound_beyond_bar=int((sv > bar).sum()),
+            bound_over_bar_median=float((sv / bar).median()),
+            entries=int(fin.sum()))
+        ok &= bool((ek <= tol).all()) and bool((ep <= tol).all())
+    equal_bits = all(torch.equal(g, a) for g, a in zip(got, again))
+    return dict(max_abs_err=max(o["max_abs_err"] for o in out.values()),
+                against_float64=out, places=places, equal_bits=equal_bits,
+                ok=ok and places and equal_bits)
 
 
 def kl_fmas(d: int) -> float:
@@ -650,7 +852,7 @@ def measure_tr_kl(etas, inp) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def measure_tr_search(args) -> dict:
+def measure_tr_search(args, against_float64: bool = False) -> dict:
     """The fused search (B3, one launch) on ``args`` = (inputs, bounds,
     lower0, upper0, active): its etas (exp(lower), exp(upper)) and trips
     equal, bit for bit, to the host loop around B3's per-trip kernel and
@@ -658,11 +860,13 @@ def measure_tr_search(args) -> dict:
     around ``tr_kl_plain``) the number of components whose result differs
     (``differ_from_plain``: a KL within the plain version's 1e-4 agreement
     of a threshold can send a bracket the other way; held to at most one)
-    and the largest |difference| of exp(lower) there.  Device ms per search
-    (``ms``); ``plain_ms`` and ``host_loop_ms``, the host loops' time per
-    search (their syncs included).  The bound counts this run's trips: per
-    trip a KL evaluation's FMAs (as ``measure_tr_kl``), the inputs read
-    once."""
+    and the largest |difference| of exp(lower) there.  With
+    ``against_float64`` (the paper's paths) the per-trip KL is held instead
+    at every eta the search visited (``visited_kl_vs_float64``), and
+    ``differ_from_plain`` is reported.  Device ms per search (``ms``);
+    ``plain_ms`` and ``host_loop_ms``, the host loops' time per search
+    (their syncs included).  The bound counts this run's trips: per trip a
+    KL evaluation's FMAs (as ``measure_tr_kl``), the inputs read once."""
     import torch
 
     from gmmvi_tpu_torch.ops import trust_region as tops
@@ -685,21 +889,144 @@ def measure_tr_search(args) -> dict:
         differ |= ~((a == b) | (torch.isnan(a) & torch.isnan(b)))
     n_differ = int(differ.sum())
     err = float((got[0] - plain[0]).abs().max())
+    visited = visited_kl_vs_float64(args) if against_float64 else {}
     k, d = inp.means.shape
     trips = got[2].to(torch.float64)
     flops = 2 * float(trips.sum()) * kl_fmas(d)
     b_ms, b_by = bound_ms(flops, 4 * (k * (3 * d * (d + 1) / 2 + 3 * d + 4)
                                       + 3 * k) + k)
-    return dict(max_abs_err=err, ok=same_bits and equal_loop and n_differ <= 1,
+    close = visited["ok"] if against_float64 else n_differ <= 1
+    return dict(max_abs_err=err, ok=same_bits and equal_loop and close,
                 same_bits=same_bits, equal_to_host_loop=equal_loop,
-                differ_from_plain=n_differ, components=k,
-                active=int(args[4].sum()), trips_max=int(got[2].max()),
-                trips_sum=int(got[2].sum()),
+                differ_from_plain=n_differ,
+                **{f"visited_kl_{key}": v for key, v in visited.items()},
+                components=k, active=int(args[4].sum()),
+                trips_max=int(got[2].max()), trips_sum=int(got[2].sum()),
                 ms=device_ms(lambda: tops.tr_search(*args)),
                 plain_ms=device_ms(lambda: tops.tr_search_plain(*args),
                                    reps=5, batch=4),
                 host_loop_ms=device_ms(host_loop, reps=5, batch=4),
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def kl_float64(etas, inp):
+    """The plain version of B3 in float64 at ``etas`` and per component
+    ``s``, the first-order bound of how far float32 arithmetic on these
+    inputs can move the KL, each error taken through the KL's exact
+    derivative (computed here in float64) so that what cancels in the KL
+    cancels in the bound.  Forming A = prec + R / eta and the Cholesky
+    factor L of it give the exact factor of A + E, |E| <= M = u |A| +
+    2u |R| / eta + gamma(D+1) |L| |L^T|, which moves log|A| + tr(A^-1
+    P_old) by at most sum |A^-1 - A^-1 P_old A^-1| o M (nearly nothing
+    where the new component is close to the old); the substitution
+    (L + dL_j) x_j = o_j of the trace's X = L^-1 O^T, |dL_j| <= gamma(D)
+    |L|, moves it by 2 gamma(D) sum |L^-T X| o |L| |X|; the new mean
+    m = L^-T L^-1 y, y = lin + R_lin / eta, moves the Mahalanobis term by
+    2 v . dm, v = P_old (m - mu): through w = A^-1 v by 2 |w| . (dy + M |m|
+    + gamma(D) |L| |z|), z = L^-1 y, and through t = L^-1 v by 2 gamma(D)
+    |t| . |L^T| |m|; o = O (mu - m) by 2 gamma(D+1) |o| . |O| |mu - m|; and
+    the sums: gamma(D^2 + D + 4) of the trace and Mahalanobis terms (both
+    versions' orders of summation), gamma(3) of the constant and log|A|,
+    2 gamma(D+1) sum |log L_ii|.  Returns ``(kl, s, infeasible)``, the KL
+    F32_MAX where eta <= 0 or A is not positive definite in float64."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import trust_region as tops
+
+    def mv(a, v):
+        return torch.einsum("kij,kj->ki", a, v)
+
+    prec, rq, lin, rl, old, mu, const = [t.double() for t in inp]
+    e = etas.double()
+    d = mu.shape[1]
+    inv_eta = 1.0 / e
+    a = prec + rq * inv_eta[:, None, None]
+    y = lin + rl * inv_eta[:, None]
+    chol, info = torch.linalg.cholesky_ex(a)
+    bad = (e <= 0) | (info != 0)
+    eye = torch.eye(d, dtype=a.dtype, device=a.device)
+    chol = torch.where(bad[:, None, None], eye, chol)
+    linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                         upper=False)
+    a_inv = linv.mT @ linv
+    p_old = old.mT @ old
+    absl = chol.abs()
+    m = U32 * a.abs() + 2 * U32 * rq.abs() * inv_eta[:, None, None] \
+        + gamma(d + 1) * absl @ absl.mT
+    dy = U32 * y.abs() + 2 * U32 * rl.abs() * inv_eta[:, None]
+    x = linv @ old.mT
+    trace = torch.sum(x * x, (-2, -1))
+    z = mv(linv, y)
+    mean = mv(linv.mT, z)
+    diff = mu - mean
+    v = -mv(p_old, diff)
+    od = mv(old, diff)
+    maha = torch.sum(od * od, -1)
+    logs = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1))
+    logdet = 2 * torch.sum(logs, -1)
+    s = 0.5 * (
+        torch.sum((a_inv - a_inv @ p_old @ a_inv).abs() * m, (-2, -1))
+        + 2 * gamma(d) * torch.sum((linv.mT @ x).abs() * (absl @ x.abs()),
+                                   (-2, -1))
+        + 2 * torch.sum(mv(a_inv, v).abs() * (
+            dy + mv(m, mean.abs()) + gamma(d) * mv(absl, z.abs())), -1)
+        + 2 * gamma(d) * torch.sum(mv(linv, v).abs()
+                                   * mv(absl.mT, mean.abs()), -1)
+        + 2 * gamma(d + 1) * torch.sum(od.abs() * mv(old.abs(),
+                                                     diff.abs()), -1)
+        + gamma(d * d + d + 4) * (trace + maha)
+        + gamma(3) * (const.abs() + logdet.abs())
+        + 2 * gamma(d + 1) * torch.sum(logs.abs(), -1))
+    kl = 0.5 * (const + logdet + trace + maha)
+    return torch.where(bad, tops.F32_MAX, kl), s, bad
+
+
+def visited_kl_vs_float64(args) -> dict:
+    """B3's per-trip KL at every eta the search on ``args`` visits (the
+    host loop around the per-trip kernel, which is the fused search to the
+    bit), held eta by eta against the plain KL in float64: F32_MAX in the
+    float32 plain version's places, and where the KL is feasible in
+    float32 and float64, |kl - ref| <= bar + s, the bar atol 1e-4 + rtol
+    1e-4 of ``ref`` and ``s`` the float32 bound of ``kl_float64``; the
+    float32 plain version is held to the same bound, a check of the bound.
+    Returns ``ok``, the evaluations compared, the kernel's and the plain
+    version's worst error over the bound, the kernel's evaluations beyond
+    the bar, those whose bound passes the bar and the bound's median over
+    the bar."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import trust_region as tops
+
+    inp, evals = args[0], []
+
+    def recording_kl(etas):
+        kl = tops.tr_kl(etas, inp)
+        evals.append((etas, kl))
+        return kl
+
+    tops.bracket_search(recording_kl, *args[1:])
+    etas = torch.stack([e for e, _ in evals])               # [trips, K]
+    kls = torch.stack([kl for _, kl in evals])
+    want = torch.stack([tops.tr_kl_plain(e, inp) for e, _ in evals])
+    ref, s, bad = (torch.stack(t) for t in zip(
+        *[kl_float64(e, inp) for e, _ in evals]))
+    live = args[4][None, :].expand_as(etas) & torch.isfinite(etas)
+    places = torch.equal(kls[live] >= 3e38, want[live] >= 3e38)
+    feas = live & (want < 3e38) & ~bad
+    if not bool(feas.any()):
+        raise AssertionError("an empty comparison: nothing was checked")
+    ref, s = ref[feas], s[feas]
+    bar = 1e-4 + 1e-4 * ref.abs()
+    ek = (kls[feas].double() - ref).abs()
+    ep = (want[feas].double() - ref).abs()
+    return dict(ok=places and bool((ek <= bar + s).all())
+                and bool((ep <= bar + s).all()),
+                evaluations=int(feas.sum()), max_abs_err=float(ek.max()),
+                worst_over_bound=float((ek / (bar + s)).max()),
+                plain_worst_over_bound=float((ep / (bar + s)).max()),
+                beyond_bar=int((ek > bar).sum()),
+                bound_beyond_bar=int((s > bar).sum()),
+                bound_over_bar_median=float((s / bar).median()))
 
 
 def kernel_phase(dev):
@@ -1014,8 +1341,10 @@ def measure_mixture_logpdf(args) -> dict:
 
     from gmmvi_tpu_torch.ops import mixture_logpdf as mops
 
+    plain, reps, sliced = plain_runner(mops.mixture_logpdf_plain, args,
+                                       args[0].shape[0])
     got = mops.mixture_logpdf(*args)
-    want = mops.mixture_logpdf_plain(*args)
+    want = plain()
     same_bits = bool(torch.equal(got, mops.mixture_logpdf(*args)))
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
@@ -1029,7 +1358,7 @@ def measure_mixture_logpdf(args) -> dict:
     return dict(max_abs_err=err, ok=ok and same_bits, same_bits=same_bits,
                 slots=k, live_slots=live, samples=n,
                 dims=d, ms=device_ms(lambda: mops.mixture_logpdf(*args)),
-                plain_ms=device_ms(lambda: mops.mixture_logpdf_plain(*args)),
+                plain_ms=device_ms(plain, **reps), plain_sliced=sliced,
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1415,13 +1744,15 @@ def background_path_rows(captured, path: str) -> dict:
 
 def density_path_rows(densities: dict) -> dict:
     """B1 and B2 once more on the inputs of their last launch at each call
-    size on each D = 20 path, held as in the kernel phase; fails on a miss
-    or where a path ran either kernel never.  Returns per kernel, per
+    size on each path, held as in the kernel phase (the paper's paths
+    against float64); fails on a miss or where a path ran either kernel
+    never.  Returns per kernel, per
     "path K=.. N=..", its numbers."""
     out: dict = {"density_pack": {}, "densities": {}}
     for key in sorted(densities):
         name, path, k, n = key
-        row = measure_density(name, densities[key])
+        row = measure_density(name, densities[key],
+                              against_float64=path in PAPER_PATHS)
         emit({"phase": "kernel_on_main_path_inputs", "path": path,
               "name": name, **row})
         if not row["ok"]:
@@ -1442,11 +1773,13 @@ LARGE_KERNELS = ("densities_large", "density_grads_large", "stein_smom")
 
 def search_rows(searches: dict) -> dict:
     """The fused search once more on the inputs of its last launch on each
-    D <= 64 path, held as in the kernel phase; fails on a miss.  Returns
+    D <= 64 path, held as in the kernel phase (the paper's paths: the KL
+    at every visited eta against float64); fails on a miss.  Returns
     per path its device ms, trips and equality with the host loop."""
     out = {}
     for path in SEARCH_PATHS:
-        row = measure_tr_search(searches[path])
+        row = measure_tr_search(searches[path],
+                                against_float64=path in PAPER_PATHS)
         emit({"phase": "kernel_on_main_path_inputs", "path": path,
               "name": "tr_search", **row})
         if not row["ok"]:
@@ -2017,6 +2350,268 @@ def runner_input_rows(captured) -> None:
                                  f"version on the runner's inputs: {out}")
 
 
+def paper_phase(dev, experiment, searches, densities, captured):
+    """One of the paper's experiments through the runner, as a user drives
+    it: ``GmmviRunner.build_from_config(get_default_config("SAMTRON",
+    experiment))`` and ``iterate_and_log(n)`` for the iterations of
+    ``PAPER_PATHS`` (planar_robot_4: 130 if the median of steps 1-10 passes
+    150 ms), the launch counters set to 0 just before and read just after.
+    The last fused search's inputs go to ``searches[experiment]``, the last
+    B1 and B2 launches' at each size to ``densities``, the last B4 and B9
+    launches' at each size to ``captured``.  Holds: every metric finite;
+    B1, B2, B3's search, B4 and B9 launched and the per-trip KL not; the
+    logistic regressions' last ELBO above the first and above
+    ``ELBO_FLOOR``; the minibatch run's full-batch ELBO finite and its
+    fevals rising; planar_robot_4 with a mode at each of its four goals at
+    the last evaluation."""
+    import torch
+
+    from gmmvi_tpu_torch.configs import get_default_config
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import mixture_logpdf as mops
+    from gmmvi_tpu_torch.optimization import sample_db
+
+    iters, want_shape = PAPER_PATHS[experiment]
+    runner = build_runner(dev, get_default_config("SAMTRON", experiment))
+    g, sel = runner.gmmvi, runner.gmmvi.selector_cfg
+    shape = (g.model.num_dimensions, g.model.max_components,
+             sel.desired_samples_per_component,
+             sel.reused_samples_per_component, sel.max_background_dists,
+             runner.log_metrics_interval)
+    if shape != want_shape:
+        raise AssertionError(f"{experiment} built as {shape}")
+    trips: list = []
+    restore = [recording(captured, mops, "mixture_logpdf",
+                         key=lambda args: ("mixture_logpdf",
+                                           args[4].shape[0])),
+               recording(captured, sample_db, "background_logpdf",
+                         key=lambda args: ("background_logpdf",
+                                           args[4].shape[0])),
+               watch_search(searches, experiment, trips),
+               *capture_density_inputs(densities, experiment)]
+    repads, evals, walls = [], [], []
+    watch_repads(g, repads)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    n = 0
+    while n < iters:
+        out = runner.iterate_and_log(n)
+        walls.append(out["walltime"])
+        if "-elbo" in out:
+            evals.append(dict(
+                iteration=n, elbo=-out["-elbo"],
+                target_density=out["target_density"],
+                num_components=out["num_components"],
+                fevals=out["num_samples"], kmax=g.model.max_components,
+                **{k: v for k, v in out.items()
+                   if k.startswith(("num_detected_modes", "elbo_fb"))},
+                finite=all(math.isfinite(v) for v in out.values()
+                           if isinstance(v, (int, float)))))
+            emit({"phase": "paper_eval", "experiment": experiment,
+                  **evals[-1]})
+        if experiment == "planar_robot_4" and n == 10 and statistics.median(
+                walls[1:11]) * 1e3 > PLANAR_STEP_MS_CAP:
+            iters = PLANAR_ITERS_CUT
+        n += 1
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t_start
+    launches = dict(cuda.LAUNCHES)
+    for undo in restore:
+        undo()
+    del g.grow_capacity
+    st = g.state
+    # B4's two call sizes at the final capacity (the ESS pass over the reuse
+    # window, the finalize pass over the total window)
+    kmax, reused = st.model.max_components, sel.reused_samples_per_component
+    for key in [k for k in captured if k[0] == "background_logpdf" and k[1]
+                not in (kmax * reused,
+                        kmax * (reused + sel.desired_samples_per_component))]:
+        del captured[key]
+    out = dict(
+        phase="main_path", path=experiment, codename="SAMTRON",
+        experiment=experiment, entry="GmmviRunner.iterate_and_log",
+        iterations=iters, first_step_s=walls[0],
+        median_step_ms=statistics.median(walls[1:]) * 1e3,
+        mean_step_ms=sum(walls[1:]) / (iters - 1) * 1e3, wall_s=total_s,
+        evaluations=len(evals), elbo_start=evals[0]["elbo"],
+        elbo_end=evals[-1]["elbo"], fevals=int(st.db.num_samples_written),
+        num_active=int(st.model.num_active),
+        kmax=st.model.max_components, repads=repads, launches=launches,
+        launches_per_step={k: v / iters for k, v in launches.items()},
+        trips_per_step=sum(lockstep_trips(trips)) / iters,
+        last_eval=evals[-1],
+        peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    emit(out)
+    if not all(e["finite"] for e in evals) or not model_finite(st):
+        raise AssertionError(f"a non-finite metric or state on {experiment}")
+    for name in ("density_pack", "densities", "tr_search",
+                 "background_logpdf", "mixture_logpdf"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on "
+                                 f"{experiment}")
+    if launches["tr_kl"] != 0:
+        raise AssertionError(f"the per-trip KL launched on {experiment}")
+    if not all(r["counts_intact"] for r in repads):
+        raise AssertionError(f"a repad broke the counts: {repads}")
+    if experiment in ELBO_FLOOR:
+        if not (out["elbo_end"] > out["elbo_start"]
+                and out["elbo_end"] >= ELBO_FLOOR[experiment]):
+            raise AssertionError(
+                f"{experiment}: ELBO {out['elbo_start']} -> "
+                f"{out['elbo_end']}, below {ELBO_FLOOR[experiment]}")
+    elif experiment == "breast_cancer_mb":
+        if not (math.isfinite(evals[-1]["elbo_fb"])
+                and evals[-1]["fevals"] > evals[0]["fevals"] > 0):
+            raise AssertionError(f"breast_cancer_mb: {evals}")
+    else:
+        modes = {k: v for k, v in evals[-1].items()
+                 if k.startswith("num_detected_modes")}
+        if len(modes) != 4 or min(modes.values()) < 1:
+            raise AssertionError(f"planar_robot_4 modes at the last "
+                                 f"evaluation: {modes}")
+    return launches
+
+
+def paper_input_rows(captured, experiment) -> dict:
+    """B4 at its two call sizes and B9 at each of its call sizes once more
+    on the inputs of their last launch on one of the paper's experiments,
+    held as in the kernel phase; fails on a miss.  Returns per kernel, per
+    label, its numbers."""
+    out = {"background_logpdf": background_path_rows(captured, experiment),
+           "mixture_logpdf": {}}
+    for key in sorted(k for k in captured if k[0] == "mixture_logpdf"):
+        row = measure_mixture_logpdf(captured[key])
+        emit({"phase": "kernel_on_main_path_inputs", "path": experiment,
+              "name": "mixture_logpdf", **row})
+        if not row["ok"]:
+            raise AssertionError(f"mixture_logpdf disagrees with its plain "
+                                 f"version on {experiment}: {row}")
+        label = f"{experiment} K={row['slots']} N={row['samples']}"
+        out["mixture_logpdf"][label] = {
+            f: row[f] for f in ("slots", "live_slots", "samples", "dims",
+                                "max_abs_err", "same_bits", "ms", "plain_ms",
+                                "bound_ms", "bound_by") if f in row}
+    if not out["mixture_logpdf"]:
+        raise AssertionError(f"no B9 launch recorded on {experiment}")
+    return out
+
+
+def diagonal_config() -> dict:
+    """``get_default_config("SAMTRON", "stm300")`` with diagonal covariances
+    on the 300-D diagonal GMM target."""
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
+
+    cfg = update_config(get_default_config("SAMTRON", "stm300"), {
+        "environment_name": "DIAGGMM",
+        "model_initialization": {"use_diagonal_covs": True}})
+    cfg["environment_config"] = {"num_dimensions": D_LARGE}
+    return cfg
+
+
+def diagonal_phase(dev) -> dict:
+    """Diagonal SAMTRON at D = 300 through ``GMMVI.build_from_config`` and
+    ``train_iter``: ``diagonal_config()``, nothing else cut (20 components
+    in 40 slots, 100 fresh and 200 reused samples each, U = 160 background
+    rows, a [R, 40, 300] distribution ring), 130 iterations (61 if the
+    step passes 150 ms over iterations 2-11), the launch counters set to 0
+    just before and read just after.  Holds: no kernel launched (a
+    diagonal model's densities, background and updates are plain torch, as
+    in the JAX package), a finite state, the runner's ELBO estimate higher
+    at the end than at the start, and step 21 on the card equal to the
+    same step from the same state and draws on the CPU, leaf by leaf at
+    the one-step bar (integers exact, floats within rtol 1e-4 / atol
+    1e-5)."""
+    import torch
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch import StepDraws
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg = diagonal_config()
+    target, model, meta = init_experiment(cfg, device=dev)
+    gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+    sel = gmmvi.selector_cfg
+    shape = (model.num_dimensions, model.max_components,
+             int(model.num_active), model.diagonal, tuple(model.chols.shape),
+             sel.desired_samples_per_component,
+             sel.reused_samples_per_component, sel.max_background_dists)
+    if shape != (D_LARGE, KMAX_LARGE, 20, True, (KMAX_LARGE, D_LARGE),
+                 N_DES_LARGE, 2 * N_DES_LARGE, U_LARGE):
+        raise AssertionError(f"diagonal SAMTRON built as {shape}")
+    elbo_start, _ = elbo(gmmvi.model, target)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    iters, step_s, fevals = MAIN_ITERS, [], []
+    before = after = draws = None
+    while len(step_s) < iters:
+        if len(step_s) == DIAG_COMPARED_STEP:
+            before = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+            draws = gmmvi.draw(gmmvi.num_updates)
+            t0 = time.perf_counter()
+            gmmvi.train_iter(draws)
+        else:
+            t0 = time.perf_counter()
+            gmmvi.train_iter()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        fevals.append(gmmvi.state.db.num_samples_written)
+        if before is not None and after is None:
+            after = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+        if len(step_s) == 11 and statistics.median(step_s[1:]) * 1e3 \
+                > LARGE_STEP_MS_CAP:
+            iters = LARGE_ITERS_CUT
+    launches = dict(cuda.LAUNCHES)
+    st = gmmvi.state
+    elbo_end, _ = elbo(st.model, target)
+    state_finite = model_finite(st)
+
+    cpu_target, cpu_model, cpu_meta = init_experiment(cfg, device="cpu")
+    cpu = GMMVI.build_from_config(cfg, cpu_target, cpu_model, cpu_meta,
+                                  device="cpu")
+    cpu.state = gmmvi_tpu_torch.state_from_numpy(before, device="cpu",
+                                                 like=cpu.state)
+    cpu.train_iter(StepDraws(**{
+        f: None if v is None else v.cpu() for f, v in vars(draws).items()}))
+    cmp = compare_states(after, gmmvi_tpu_torch.state_to_numpy(cpu.state),
+                         DIAG_RTOL, DIAG_ATOL)
+    step_ms = sum(step_s[1:]) / (iters - 1) * 1e3
+    out = dict(
+        phase="main_path", path="SAMTRON-diagonal", codename="SAMTRON",
+        experiment="stm300 with diagonal covariances on DIAGGMM D=300",
+        iterations=iters, cut_to_61=iters != MAIN_ITERS,
+        first_step_s=step_s[0], step_ms=step_ms,
+        median_step_ms=statistics.median(step_s[1:]) * 1e3,
+        fevals=int(fevals[-1]), num_active=int(st.model.num_active),
+        elbo_start=elbo_start, elbo_end=elbo_end, state_finite=state_finite,
+        launches=launches, card_vs_cpu_step=DIAG_COMPARED_STEP + 1,
+        card_vs_cpu_bar=f"rtol {DIAG_RTOL} / atol {DIAG_ATOL}",
+        card_vs_cpu_worst=cmp["worst"], card_vs_cpu_missed=cmp["missed"],
+        card_vs_cpu_ratios={k: v for k, v in cmp["ratios"].items()
+                            if v > 0},
+        peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    emit(out)
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the diagonal path: "
+                             f"{launches}")
+    if not state_finite:
+        raise AssertionError("a non-finite state after the diagonal path")
+    if not elbo_end > elbo_start:
+        raise AssertionError(f"the diagonal ELBO did not improve: "
+                             f"{elbo_start} -> {elbo_end}")
+    if cmp["missed"]:
+        raise AssertionError(f"the card's step {DIAG_COMPARED_STEP + 1} "
+                             f"differs from the CPU's in {cmp['missed']}: "
+                             f"{cmp['ratios']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2065,17 +2660,27 @@ def main() -> int:
                "SAMTRON-standard-IW": main_path_phase(
                    dev, "SAMTRON-standard-IW", flagship, searches, densities,
                    fevals_at=samtron_fevals)[0]}
+    captured_paper = {e: {} for e in PAPER_PATHS}
+    for experiment in PAPER_PATHS:
+        by_path[experiment] = paper_phase(dev, experiment, searches,
+                                          densities,
+                                          captured_paper[experiment])
     on_paths = {**density_path_rows(densities),
                 "tr_search": search_rows(searches),
                 "background_logpdf": {
                     **background_path_rows(captured, "ZAMTRUX"),
-                    **background_path_rows(captured_semidug, "SEMIDUG")}}
+                    **background_path_rows(captured_semidug, "SEMIDUG")},
+                "mixture_logpdf": {}}
+    for experiment, caught in captured_paper.items():
+        for name, labels in paper_input_rows(caught, experiment).items():
+            on_paths[name].update(labels)
     main_path_input_rows(captured, searches["ZAMTRUX"])
     for path, large in (("stm300", captured_large),
                         ("SEPYFUX", captured_sepyfux)):
         for name, labels in large_d_input_rows(large, path).items():
             on_paths.setdefault(name, {}).update(labels)
     runner_input_rows(captured_runner)
+    by_path["SAMTRON-diagonal"] = diagonal_phase(dev)
     for r in rows:
         if r["name"] in on_paths:
             r["paths"] = on_paths[r["name"]]

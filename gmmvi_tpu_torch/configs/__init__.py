@@ -3,8 +3,10 @@
 (JAX counterpart: gmmvi_tpu/configs/__init__.py)
 
 The module defaults each codename letter selects, and the ``stm20``,
-``stm300``, ``gmm20`` and ``gmm100`` experiment defaults, are kept here as
-Python dicts: the port reads no YAML at run time.  They equal the YAML
+``stm300``, ``gmm20``, ``gmm100``, ``breast_cancer``, ``breast_cancer_mb``,
+``german_credit``, ``german_credit_mb`` and ``planar_robot_4`` experiment
+defaults, are kept here as Python dicts: the port reads no YAML at run
+time.  They equal the YAML
 files of the JAX package
 (``gmmvi_tpu/configs/module_configs`` and ``experiment_configs``); a CPU test
 holds them to it.
@@ -87,7 +89,45 @@ _GMM_DEFAULTS = {
     "temperature": 1.0,
 }
 
+# the logistic-regression posteriors: one broad component grown by VIPS
+_LR_DEFAULTS = {
+    "start_seed": 10000,
+    "environment_config": {},
+    "model_initialization": {"use_diagonal_covs": False,
+                             "num_initial_components": 1,
+                             "prior_mean": 0.0, "prior_scale": 10.0,
+                             "initial_cov": 100.0},
+    "gmmvi_runner_config": {"log_metrics_interval": 20},
+    "use_sample_database": True,
+    "max_database_size": 10000000,
+    "temperature": 1.0,
+}
+_MINIBATCH = {"batch_size": 64, "size_test_set": 0,
+              "use_own_batch_per_sample": True}
+
 EXPERIMENT_DEFAULTS = {
+    "breast_cancer": {**_LR_DEFAULTS, "environment_name": "breastCancer",
+                      "gmmvi_runner_config": {"log_metrics_interval": 50}},
+    "breast_cancer_mb": {**_LR_DEFAULTS,
+                         "environment_name": "breastCancer_mb",
+                         "environment_config": _MINIBATCH},
+    "german_credit": {**_LR_DEFAULTS, "environment_name": "GermanCredit"},
+    "german_credit_mb": {**_LR_DEFAULTS,
+                         "environment_name": "GermanCredit_mb",
+                         "environment_config": _MINIBATCH},
+    "planar_robot_4": {
+        "start_seed": 10000,
+        "environment_name": "PlanarRobot4",
+        "environment_config": {},
+        "model_initialization": {
+            "use_diagonal_covs": False, "num_initial_components": 300,
+            "prior_mean": 0.0, "prior_scale": [1.0] + [0.2] * 9,
+            "initial_cov": [0.0625] + [0.0025] * 9},
+        "gmmvi_runner_config": {"log_metrics_interval": 10},
+        "use_sample_database": True,
+        "max_database_size": 10000000,
+        "temperature": 1.0,
+    },
     "gmm20": {**_GMM_DEFAULTS, "environment_config": {"num_dimensions": 20}},
     "gmm100": {**_GMM_DEFAULTS,
                "environment_config": {"num_dimensions": 100}},

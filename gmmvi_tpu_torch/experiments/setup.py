@@ -20,28 +20,44 @@ from gmmvi_tpu_torch.models.meta import MetaState
 
 def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
                      device="cuda") -> LNPDF:
-    """Environment-name registry; the port has the Student-T mixture
-    ("STM") and the full-covariance GMM targets ("GMM*") so far.  Random
-    targets are seeded with the run seed unless ``environment_config``
-    names its own."""
+    """Environment-name registry: the Student-T mixture ("STM"), the GMM
+    targets ("GMM*", "DIAGGMM*"), the logistic-regression posteriors
+    ("breastCancer", "GermanCredit" and their "_mb" minibatch variants) and
+    the planar robots ("PlanarRobot1", "PlanarRobot4").  Random targets are
+    seeded with the run seed unless ``environment_config`` names its own."""
     environment_config = dict(environment_config or {})
     target_seed = environment_config.pop("seed", seed)
+    if experiment in ("breastCancer", "GermanCredit", "breastCancer_mb",
+                      "GermanCredit_mb"):
+        from gmmvi_tpu_torch.experiments.targets import \
+            logistic_regression as lr
+        maker = {"breastCancer": lr.make_breast_cancer,
+                 "GermanCredit": lr.make_german_credit,
+                 "breastCancer_mb": lr.make_breast_cancer_mb,
+                 "GermanCredit_mb": lr.make_german_credit_mb}[experiment]
+        return maker(device=device, **environment_config)
+    if experiment in ("PlanarRobot1", "PlanarRobot4"):
+        from gmmvi_tpu_torch.experiments.targets import planar_robot
+        maker = (planar_robot.make_single_goal if experiment.endswith("1")
+                 else planar_robot.make_four_goal)
+        return maker(device=device)
     if experiment == "STM":
         from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
             make_target
         return make_target(seed=target_seed, device=device,
                            **environment_config)
     if experiment.startswith("DIAGGMM"):
-        raise NotImplementedError(
-            "diagonal GMM targets are not ported yet (full covariances "
-            "only)")
+        from gmmvi_tpu_torch.experiments.targets.gmm import make_diag_target
+        return make_diag_target(seed=target_seed, device=device,
+                                **environment_config)
     if experiment.startswith("GMM"):
         from gmmvi_tpu_torch.experiments.targets.gmm import make_target
         return make_target(seed=target_seed, device=device,
                            **environment_config)
     raise NotImplementedError(
-        f"target '{experiment}' is not ported yet (the port has STM and "
-        "GMM)")
+        f"target '{experiment}' is not ported yet (the port has STM, GMM, "
+        "DIAGGMM, breastCancer, GermanCredit, their _mb variants and "
+        "PlanarRobot1/4)")
 
 
 def construct_initial_mixture(
@@ -56,11 +72,8 @@ def construct_initial_mixture(
     device="cuda",
 ) -> GmmState:
     """K components with means ~ N(prior_mean, prior_scale^2) (a single
-    component sits at the prior mean) and the given isotropic initial
-    covariance, padded to ``max_components`` slots."""
-    if use_diagonal_covs:
-        raise NotImplementedError(
-            "diagonal covariances are not ported yet (full covariances only)")
+    component sits at the prior mean) and the given isotropic or diagonal
+    initial covariance, padded to ``max_components`` slots."""
     if rng is None:
         rng = np.random.RandomState()
     prior_mean = np.asarray(prior_mean, np.float64) * np.ones(num_dimensions)
@@ -77,14 +90,22 @@ def construct_initial_mixture(
             means[i] = prior_mean + np.sqrt(prior_var) * rng.standard_normal(
                 num_dimensions)
 
-    if initial_cov is None:
-        cov = np.diag(prior_var)
+    if use_diagonal_covs:
+        cov_diag = (prior_var if initial_cov is None else
+                    np.asarray(initial_cov, np.float64)
+                    * np.ones(num_dimensions))
+        covs = np.tile(cov_diag[None, :], (k, 1)).astype(np.float32)
     else:
-        ic = np.asarray(initial_cov, np.float64)
-        cov = np.diag(ic * np.ones(num_dimensions)) if ic.ndim <= 1 else ic
-    covs = np.tile(cov[None, :, :], (k, 1, 1)).astype(np.float32)
+        if initial_cov is None:
+            cov = np.diag(prior_var)
+        else:
+            ic = np.asarray(initial_cov, np.float64)
+            cov = np.diag(ic * np.ones(num_dimensions)) if ic.ndim <= 1 \
+                else ic
+        covs = np.tile(cov[None, :, :], (k, 1, 1)).astype(np.float32)
     return create_gmm_state(weights, means, covs,
                             max_components=max_components or k,
+                            diagonal=use_diagonal_covs,
                             device=resolve_device(device))
 
 

@@ -1,12 +1,12 @@
-"""GMM target distributions (full covariance; the diagonal ones are not
-ported yet).
+"""GMM target distributions, full and diagonal covariance.
 
 (JAX counterpart: gmmvi_tpu/experiments/targets/gmm.py)
 
-The target is a padded :class:`~gmmvi_tpu_torch.models.gmm.GmmState`, so its
-log-density runs through the mixture log-density kernel B9 and its density
-and analytic gradient through the density-pack kernel B1 (B5/B6 at
-D > 128).  The random targets draw from ``np.random.RandomState(seed)``
+The target is a padded :class:`~gmmvi_tpu_torch.models.gmm.GmmState`, so a
+full-covariance target's log-density runs through the mixture log-density
+kernel B9 and its density and analytic gradient through the density-pack
+kernel B1 (B5/B6 at D > 128); a diagonal one's are plain torch, as the
+model's are.  The random targets draw from ``np.random.RandomState(seed)``
 exactly as the JAX package does, so one seed gives the same target in both.
 """
 from __future__ import annotations
@@ -25,16 +25,17 @@ from gmmvi_tpu_torch.models.gmm import create_gmm_state
 
 
 class GMM_LNPDF(LNPDF):
-    """Target given by a full-covariance GMM."""
+    """Target given by a GMM: covariances ``[K, D, D]``, or variances
+    ``[K, D]`` with ``diagonal``."""
 
     def __init__(self, target_weights, target_means, target_covs,
-                 make_plots=True, device="cuda"):
+                 make_plots=True, device="cuda", diagonal=False):
         self.target_weights = np.asarray(target_weights, np.float32)
         self.target_means = np.asarray(target_means, np.float32)
         self.target_covs = np.asarray(target_covs, np.float32)
         self.make_plots = make_plots
         self._state = create_gmm_state(self.target_weights, self.target_means,
-                                       self.target_covs,
+                                       self.target_covs, diagonal=diagonal,
                                        device=resolve_device(device))
 
     def _x(self, x) -> torch.Tensor:
@@ -68,6 +69,19 @@ class GMM_LNPDF(LNPDF):
                                       grid=(4, 5))
 
 
+class DIAGGMM_LNPDF(GMM_LNPDF):
+    """Target given by a diagonal-covariance GMM (variances ``[K, D]``);
+    no metrics of its own."""
+
+    def __init__(self, target_weights, target_means, target_covs,
+                 device="cuda"):
+        super().__init__(target_weights, target_means, target_covs,
+                         device=device, diagonal=True)
+
+    def expensive_metrics(self, model_state, samples) -> dict:
+        return {}
+
+
 def make_target(num_dimensions: int, seed: int = None, device="cuda"
                 ) -> GMM_LNPDF:
     """Random 10-component GMM: means ~ 100 (U - 0.5), covariances
@@ -97,6 +111,18 @@ def make_target_with_scale(num_dimensions: int, num_components: int,
         a = rng.normal(0, math.sqrt(scale), (num_dimensions, num_dimensions))
         covs[i] = a.T @ a + np.eye(num_dimensions)
     return GMM_LNPDF(weights, means, covs, device=device)
+
+
+def make_diag_target(num_dimensions: int, seed: int = None, device="cuda"
+                     ) -> DIAGGMM_LNPDF:
+    """Random 10-component diagonal GMM: means ~ 100 (U - 0.5), variances
+    10 U."""
+    rng = np.random.RandomState(seed)
+    k = 10
+    weights = np.ones(k) / k
+    means = 100.0 * (rng.random((k, num_dimensions)) - 0.5)
+    covs = 10.0 * rng.random((k, num_dimensions))
+    return DIAGGMM_LNPDF(weights, means, covs, device=device)
 
 
 def _rot(theta):

@@ -1,6 +1,6 @@
 """Padded Gaussian mixture state and batched mixture operations.
 
-(JAX counterpart: gmmvi_tpu/models/gmm.py, full-covariance parts)
+(JAX counterpart: gmmvi_tpu/models/gmm.py)
 
 The mixture lives in fixed-capacity tensors ``[Kmax, ...]``; the active
 components occupy the prefix ``[0, num_active)``.  Inactive slots carry
@@ -8,6 +8,12 @@ components occupy the prefix ``[0, num_active)``.  Inactive slots carry
 linear algebra over the padded axis stays finite.  Inverse Cholesky factors
 are cached beside the factors.  ``num_active`` stays a 0-d device tensor:
 structural updates select with masks instead of reading it on the host.
+
+A diagonal model (``diagonal=True``) keeps square roots of the variances
+``[Kmax, D]`` as its factors (ones in inactive slots) and their reciprocals
+as the inverses.  Its densities and gradients are plain torch, as the JAX
+package's are (its kernels take full covariances only), with the
+``[Kmax, N, D]`` intermediates made a few components at a time.
 """
 from __future__ import annotations
 
@@ -28,10 +34,8 @@ from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 LOG_2PI = math.log(2.0 * math.pi)
 
 
-def _full_cov_only(diagonal: bool) -> None:
-    if diagonal:
-        raise NotImplementedError(
-            "diagonal covariances are not ported yet (full covariances only)")
+# elements of one [k, N, D] slab of a diagonal model's intermediates
+_DIAG_CHUNK = 1 << 25
 
 
 @dataclass
@@ -39,7 +43,9 @@ class GmmState:
     """Padded GMM parameters.
 
     log_weights ``[Kmax]`` (-inf inactive), means ``[Kmax, D]``, chols and
-    inv_chols ``[Kmax, D, D]`` lower triangular, num_active 0-d int32."""
+    inv_chols ``[Kmax, D, D]`` lower triangular (``[Kmax, D]`` square roots
+    of the variances and their reciprocals when ``diagonal``), num_active
+    0-d int32."""
 
     log_weights: torch.Tensor
     means: torch.Tensor
@@ -70,14 +76,39 @@ class GmmState:
     def weights(self) -> torch.Tensor:
         return torch.where(self.mask, torch.exp(self.log_weights), 0.0)
 
+    @property
+    def covs(self) -> torch.Tensor:
+        """Covariances ``[Kmax, D, D]`` (variances ``[Kmax, D]`` when
+        diagonal)."""
+        if self.diagonal:
+            return torch.square(self.chols)
+        return self.chols @ self.chols.mT
+
     def replace(self, **kw) -> "GmmState":
         return dataclasses.replace(self, **kw)
 
 
-def safe_chol_pad(chols: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Identity factors in the inactive slots."""
+def invert_chol(chols: torch.Tensor, diagonal: bool = False
+                ) -> torch.Tensor:
+    """Inverses of (batched) lower-triangular factors; reciprocals when
+    diagonal."""
+    return 1.0 / chols if diagonal else tril_inverse(chols)
+
+
+def safe_chol_pad(chols: torch.Tensor, mask: torch.Tensor,
+                  diagonal: bool = False) -> torch.Tensor:
+    """Identity factors (ones when diagonal) in the inactive slots."""
+    if diagonal:
+        return torch.where(mask[:, None], chols, 1.0)
     eye = torch.eye(chols.shape[-1], dtype=chols.dtype, device=chols.device)
     return torch.where(mask[:, None, None], chols, eye)
+
+
+def _pad_chols(n: int, d: int, diagonal: bool, **opts) -> torch.Tensor:
+    """``n`` inactive slots' factors: identities, or ones when diagonal."""
+    if diagonal:
+        return torch.ones((n, d), **opts)
+    return torch.eye(d, **opts).expand(n, d, d)
 
 
 def create_gmm_state(weights, means, covs, max_components: Optional[int] = None,
@@ -85,8 +116,8 @@ def create_gmm_state(weights, means, covs, max_components: Optional[int] = None,
                      dtype=torch.float32) -> GmmState:
     """Padded :class:`GmmState` from K initial components (numpy arrays or
     tensors) in ``dtype``; weights are normalized and covariances
-    Cholesky-factored."""
-    _full_cov_only(diagonal)
+    Cholesky-factored.  ``covs`` is ``[K, D, D]``, or the variances ``[K,
+    D]`` when ``diagonal``."""
     device = resolve_device(device)
     opts = dict(dtype=dtype, device=device)
     weights = torch.as_tensor(weights, **opts)
@@ -98,16 +129,16 @@ def create_gmm_state(weights, means, covs, max_components: Optional[int] = None,
         raise ValueError(f"max_components={kmax} < initial components {k}")
     log_w = torch.log(weights)
     log_w = log_w - torch.logsumexp(log_w, 0)
-    chols = torch.linalg.cholesky(covs)
-    pad_chol = torch.eye(d, **opts).expand(kmax - k, d, d)
-    chols_p = torch.cat([chols, pad_chol])
+    chols = torch.sqrt(covs) if diagonal else torch.linalg.cholesky(covs)
+    chols_p = torch.cat([chols, _pad_chols(kmax - k, d, diagonal, **opts)])
     return GmmState(
         log_weights=torch.cat([log_w,
                                torch.full((kmax - k,), NEG_INF, **opts)]),
         means=torch.cat([means, torch.zeros((kmax - k, d), **opts)]),
         chols=chols_p,
-        inv_chols=tril_inverse(chols_p),
+        inv_chols=invert_chol(chols_p, diagonal),
         num_active=torch.tensor(k, dtype=torch.int32, device=device),
+        diagonal=diagonal,
     )
 
 
@@ -115,31 +146,69 @@ def create_gmm_state(weights, means, covs, max_components: Optional[int] = None,
 # Densities
 # ---------------------------------------------------------------------------
 
-def chol_log_det(chols: torch.Tensor) -> torch.Tensor:
+def chol_log_det(chols: torch.Tensor, diagonal: bool = False
+                 ) -> torch.Tensor:
     """log |L| per component."""
+    if diagonal:
+        return torch.sum(torch.log(chols), -1)
     return torch.sum(torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)), -1)
 
 
 def whitened_diffs(state: GmmState, samples: torch.Tensor) -> torch.Tensor:
     """``y[k, n] = L_k^{-1}(x_n - mu_k)``, ``[Kmax, N, D]``."""
     diffs = samples[None, :, :] - state.means[:, None, :]
+    if state.diagonal:
+        return state.inv_chols[:, None, :] * diffs
     return torch.einsum("kij,knj->kni", state.inv_chols, diffs)
+
+
+def diag_chunks(k: int, n: int, d: int):
+    """Component ranges whose ``[k, N, D]`` slabs hold at most
+    ``_DIAG_CHUNK`` elements each."""
+    step = max(1, _DIAG_CHUNK // max(1, n * d))
+    return [(lo, min(lo + step, k)) for lo in range(0, k, step)]
+
+
+def diag_half_maha(means: torch.Tensor, inv_chols: torch.Tensor,
+                   samples: torch.Tensor) -> torch.Tensor:
+    """``[K, N]`` ``-0.5 ||inv_k (x_n - mu_k)||^2`` of diagonal components
+    (``inv_chols`` ``[K, D]``), a few components at a time."""
+    k, d = means.shape
+    out = []
+    for lo, hi in diag_chunks(k, samples.shape[0], d):
+        y = inv_chols[lo:hi, None, :] * (samples[None, :, :]
+                                         - means[lo:hi, None, :])
+        out.append(-0.5 * torch.sum(y * y, dim=-1))
+    return torch.cat(out)
 
 
 def component_log_densities(state: GmmState, samples: torch.Tensor
                             ) -> torch.Tensor:
     """``[Kmax, N]`` log N(x_n; mu_k, Sigma_k); inactive slots give values
     that must be masked."""
-    y = whitened_diffs(state, samples)
-    const = -chol_log_det(state.chols) - 0.5 * state.num_dimensions * LOG_2PI
-    return -0.5 * torch.sum(y * y, dim=-1) + const[:, None]
+    const = -chol_log_det(state.chols, state.diagonal) \
+        - 0.5 * state.num_dimensions * LOG_2PI
+    if state.diagonal:
+        maha = diag_half_maha(state.means, state.inv_chols, samples)
+    else:
+        y = whitened_diffs(state, samples)
+        maha = -0.5 * torch.sum(y * y, dim=-1)
+    return maha + const[:, None]
+
+
+def _mixture_of(state: GmmState, comp: torch.Tensor) -> torch.Tensor:
+    """``[N]`` mixture log density from component log densities."""
+    return masked_logsumexp(comp + state.log_weights[:, None],
+                            mask=state.mask[:, None], dim=0)
 
 
 def log_density(state: GmmState, samples: torch.Tensor) -> torch.Tensor:
     """``[N]`` mixture log density: kernel B9 on the card (B5's mixture
     output at D > 128); on the CPU its plain version, the arithmetic of
-    :func:`component_log_densities` and ``masked_logsumexp``."""
-    _full_cov_only(state.diagonal)
+    :func:`component_log_densities` and ``masked_logsumexp``.  Plain torch
+    for a diagonal model."""
+    if state.diagonal:
+        return _mixture_of(state, component_log_densities(state, samples))
     return mixture_ops.mixture_logpdf(*_kernel_args(state), samples)
 
 
@@ -151,10 +220,12 @@ def density(state: GmmState, samples: torch.Tensor) -> torch.Tensor:
 def marginal_log_density(state: GmmState, samples: torch.Tensor, dim: int
                          ) -> torch.Tensor:
     """``[N]`` 1-D marginal mixture log density along ``dim``."""
-    _full_cov_only(state.diagonal)
     x = samples[:, dim]
     mu = state.means[:, dim]
-    var = torch.sum(torch.square(state.chols[:, dim, :]), dim=-1)
+    if state.diagonal:
+        var = torch.square(state.chols[:, dim])
+    else:
+        var = torch.sum(torch.square(state.chols[:, dim, :]), dim=-1)
     comp = (-0.5 * torch.square(x[None, :] - mu[:, None]) / var[:, None]
             - 0.5 * torch.log(var)[:, None] - 0.5 * LOG_2PI)
     return masked_logsumexp(comp + state.log_weights[:, None],
@@ -186,8 +257,11 @@ def component_log_densities_fast(state: GmmState, samples: torch.Tensor
 
 def log_densities_also_individual(state: GmmState, samples: torch.Tensor):
     """(model log densities ``[N]``, component log densities ``[Kmax, N]``)
-    in one pass: kernel B2 (B5 at D > 128) on the card."""
-    _full_cov_only(state.diagonal)
+    in one pass: kernel B2 (B5 at D > 128) on the card; plain torch for a
+    diagonal model."""
+    if state.diagonal:
+        comp = component_log_densities(state, samples)
+        return _mixture_of(state, comp), comp
     fn = (density_large_ops.densities_large if _large_d(state)
           else density_ops.densities)
     comp, model = fn(*_kernel_args(state), samples)
@@ -208,11 +282,33 @@ class DensityPack:
 def density_pack(state: GmmState, samples: torch.Tensor) -> DensityPack:
     """Component densities, mixture density and analytic mixture gradient
     ``-sum_k r_k(x) Sigma_k^{-1}(x - mu_k)`` in one pass: kernel B1 on the
-    card (B5 then B6 at D > 128)."""
-    _full_cov_only(state.diagonal)
+    card (B5 then B6 at D > 128); plain torch for a diagonal model."""
+    if state.diagonal:
+        return _diag_density_pack(state, samples)
     fn = (density_large_ops.density_pack_large if _large_d(state)
           else density_ops.density_pack)
     comp, model, grads = fn(*_kernel_args(state), samples)
+    return DensityPack(comp, model, grads)
+
+
+def _diag_density_pack(state: GmmState, samples: torch.Tensor
+                       ) -> DensityPack:
+    """:func:`density_pack` of a diagonal model, as the JAX package's XLA
+    path computes it: responsibilities ``r = exp(log w + comp - model)``
+    over the active slots and ``grads = -sum_k r_k inv_k^2 (x - mu_k)``, the
+    ``[k, N, D]`` products a few components at a time."""
+    comp = component_log_densities(state, samples)
+    weighted = comp + state.log_weights[:, None]
+    model = masked_logsumexp(weighted, mask=state.mask[:, None], dim=0)
+    resp = torch.where(state.mask[:, None],
+                       torch.exp(weighted - model[None, :]), 0.0)
+    n, d = samples.shape
+    grads = torch.zeros_like(samples)
+    for lo, hi in diag_chunks(state.max_components, n, d):
+        inv = state.inv_chols[lo:hi, None, :]
+        ptd = inv * (inv * (samples[None, :, :]
+                            - state.means[lo:hi, None, :]))
+        grads = grads - torch.einsum("kn,knd->nd", resp[lo:hi], ptd)
     return DensityPack(comp, model, grads)
 
 
@@ -223,7 +319,8 @@ def density_pack(state: GmmState, samples: torch.Tensor) -> DensityPack:
 def component_entropies(state: GmmState) -> torch.Tensor:
     """``[Kmax]`` Gaussian entropies 0.5 D (log 2pi + 1) + log|L|."""
     d = state.num_dimensions
-    return 0.5 * d * (LOG_2PI + 1.0) + chol_log_det(state.chols)
+    return 0.5 * d * (LOG_2PI + 1.0) + chol_log_det(state.chols,
+                                                    state.diagonal)
 
 
 def average_entropy(state: GmmState) -> torch.Tensor:
@@ -236,6 +333,8 @@ def sample_from_components(state: GmmState, eps: torch.Tensor
                            ) -> torch.Tensor:
     """``[Kmax, n, D]`` draws mu_k + L_k eps from standard-normal ``eps``
     ``[Kmax, n, D]``; the caller masks draws of inactive slots."""
+    if state.diagonal:
+        return state.means[:, None, :] + state.chols[:, None, :] * eps
     return state.means[:, None, :] + torch.einsum("kij,knj->kni", state.chols,
                                                   eps)
 
@@ -259,16 +358,23 @@ def sample(state: GmmState, num_samples: int,
     package.  ``comp`` (unsorted component indices) and ``eps`` (standard
     normal ``[n, D]``) are drawn from ``generator`` unless given, so a test
     can inject the JAX package's draws."""
-    _full_cov_only(state.diagonal)
     if comp is None:
         comp = sample_categorical(state, num_samples, generator)
     if eps is None:
         eps = torch.randn((num_samples, state.num_dimensions),
                           generator=generator, device=state.device)
     mapping = torch.sort(comp.long()).values
-    smp = state.means[mapping] + torch.einsum("nij,nj->ni",
-                                              state.chols[mapping], eps)
-    return smp, mapping
+    return draw_at(state, mapping, eps), mapping
+
+
+def draw_at(state: GmmState, mapping: torch.Tensor, eps: torch.Tensor
+            ) -> torch.Tensor:
+    """``[n, D]`` draws ``mu_m + L_m eps`` of the components ``mapping``
+    ``[n]`` from standard-normal ``eps`` ``[n, D]``."""
+    if state.diagonal:
+        return state.means[mapping] + state.chols[mapping] * eps
+    return state.means[mapping] + torch.einsum("nij,nj->ni",
+                                               state.chols[mapping], eps)
 
 
 # ---------------------------------------------------------------------------
@@ -293,38 +399,43 @@ def replace_components(state: GmmState, new_means, new_chols,
                        new_inv_chols=None) -> GmmState:
     """Replace the active components' parameters; inactive slots keep
     identity factors.  ``new_inv_chols`` skips the re-inversion."""
-    mask = state.mask
+    mask, diag = state.mask, state.diagonal
     means = torch.where(mask[:, None], new_means, state.means)
-    chols = safe_chol_pad(new_chols, mask)
+    chols = safe_chol_pad(new_chols, mask, diag)
     if new_inv_chols is None:
-        inv_chols = tril_inverse(chols)
+        inv_chols = invert_chol(chols, diag)
     else:
-        inv_chols = safe_chol_pad(new_inv_chols, mask)
+        inv_chols = safe_chol_pad(new_inv_chols, mask, diag)
     return state.replace(means=means, chols=chols, inv_chols=inv_chols)
 
 
 def add_component(state: GmmState, initial_weight, initial_mean,
                   initial_cov) -> GmmState:
     """Write a component into slot ``num_active`` and renormalize; a no-op
-    when the state is full."""
-    _full_cov_only(state.diagonal)
+    when the state is full.  ``initial_cov`` is ``[D, D]``, or the
+    variances ``[D]`` of a diagonal model."""
     k = state.num_active
     kmax = state.max_components
     has_room = k < kmax
     slot = torch.clamp(k, max=kmax - 1)
     at_slot = (torch.arange(kmax, device=state.device) == slot) & has_room
-    new_chol = torch.linalg.cholesky_ex(initial_cov)[0]
+    if state.diagonal:
+        new_chol = torch.sqrt(initial_cov)
+    else:
+        new_chol = torch.linalg.cholesky_ex(initial_cov)[0]
     initial_weight = torch.as_tensor(initial_weight, dtype=torch.float32,
                                      device=state.device)
     means = torch.where(at_slot[:, None], initial_mean[None, :], state.means)
-    chols = torch.where(at_slot[:, None, None], new_chol[None], state.chols)
+    sel = at_slot.reshape((kmax,) + (1,) * (state.chols.ndim - 1))
+    chols = torch.where(sel, new_chol[None], state.chols)
     log_w = torch.where(at_slot, torch.log(initial_weight),
                         state.log_weights)
     num_active = torch.where(has_room, k + 1, k).to(torch.int32)
     new_mask = torch.arange(kmax, device=state.device) < num_active
     return state.replace(
         log_weights=normalize_log_weights(log_w, new_mask), means=means,
-        chols=chols, inv_chols=tril_inverse(chols), num_active=num_active)
+        chols=chols, inv_chols=invert_chol(chols, state.diagonal),
+        num_active=num_active)
 
 
 def compaction_order(keep: torch.Tensor) -> torch.Tensor:
@@ -340,12 +451,12 @@ def remove_components(state: GmmState, keep: torch.Tensor) -> GmmState:
     num_active = torch.sum(keep).to(torch.int32)
     new_mask = torch.arange(state.max_components,
                             device=state.device) < num_active
-    chols = safe_chol_pad(state.chols[order], new_mask)
+    chols = safe_chol_pad(state.chols[order], new_mask, state.diagonal)
     return state.replace(
         log_weights=normalize_log_weights(state.log_weights[order], new_mask),
         means=torch.where(new_mask[:, None], state.means[order], 0.0),
         chols=chols,
-        inv_chols=tril_inverse(chols),
+        inv_chols=invert_chol(chols, state.diagonal),
         num_active=num_active,
     )
 
@@ -358,7 +469,7 @@ def repad(state: GmmState, new_max_components: int) -> GmmState:
     if extra <= 0:
         return state
     f32 = dict(dtype=torch.float32, device=state.device)
-    pad_chol = torch.eye(d, **f32).expand(extra, d, d)
+    pad_chol = _pad_chols(extra, d, state.diagonal, **f32)
     return state.replace(
         log_weights=torch.cat([state.log_weights,
                                torch.full((extra,), NEG_INF, **f32)]),

@@ -1,6 +1,6 @@
 """Whitened importance-weighted ridge regression of a quadratic surrogate.
 
-(JAX counterpart: gmmvi_tpu/ops/quadratic.py, full-covariance parts)
+(JAX counterpart: gmmvi_tpu/ops/quadratic.py)
 
 Fit ``R(x) = x^T Q x + x^T r + r0`` by weighted least squares on quadratic
 features of the samples whitened by the sampling Gaussian, with an
@@ -8,7 +8,10 @@ unregularized bias: the normal equations ``(X^T W X + reg) theta = X^T W y``
 are solved by Cholesky and the coefficients unwhitened.  These are the small
 solves around the MORE Gram kernel (B8, ``ops/more.py``); they stay plain
 PyTorch.  :func:`solve_quadratic_normal_eqs` also takes a leading batch of
-components.
+components.  A diagonal sampling Gaussian (``sample_inv_chol`` ``[..., D]``,
+the reciprocals of its standard deviations, with ``diagonal=True``) whitens
+and unwhitens elementwise; the fit is the full quadratic all the same, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,7 +42,10 @@ def quadratic_features(x: torch.Tensor) -> torch.Tensor:
 
 def whiten(inputs: torch.Tensor, sample_mean: torch.Tensor,
            sample_inv_chol: torch.Tensor) -> torch.Tensor:
-    """``z = L^{-1}(x - mu)`` for samples ``[N, D]``."""
+    """``z = L^{-1}(x - mu)`` for samples ``[N, D]``; elementwise for a
+    diagonal ``sample_inv_chol`` ``[D]``."""
+    if sample_inv_chol.ndim == 1:
+        return (inputs - sample_mean) * sample_inv_chol[None, :]
     return torch.einsum("ij,nj->ni", sample_inv_chol, inputs - sample_mean)
 
 
@@ -61,7 +67,8 @@ def _cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
 
 def solve_quadratic_normal_eqs(gram: torch.Tensor, rhs: torch.Tensor,
                                regularizer, sample_mean: torch.Tensor,
-                               sample_inv_chol: torch.Tensor):
+                               sample_inv_chol: torch.Tensor,
+                               diagonal: bool = False):
     """Solve and unwhiten, given the weighted normal equations over the
     whitened quadratic features: ``gram [..., F, F]``, ``rhs [..., F]``,
     ``regularizer`` a scalar or ``[...]``.  Returns ``(quad_term [..., D,
@@ -84,8 +91,12 @@ def solve_quadratic_normal_eqs(gram: torch.Tensor, rhs: torch.Tensor,
     const_term = params[..., f - 1]
 
     a = sample_inv_chol
-    quad_w = torch.einsum("...ji,...jk,...kl->...il", a, quad_term, a)
-    t1 = torch.einsum("...ji,...j->...i", a, lin_term)
+    if diagonal:
+        quad_w = a[..., :, None] * quad_term * a[..., None, :]
+        t1 = a * lin_term
+    else:
+        quad_w = torch.einsum("...ji,...jk,...kl->...il", a, quad_term, a)
+        t1 = torch.einsum("...ji,...j->...i", a, lin_term)
     t2 = torch.einsum("...ij,...j->...i", quad_w, sample_mean)
     lin_w = t1 + t2
     const_w = const_term + torch.sum(sample_mean * (-0.5 * t2 - t1), dim=-1)
@@ -94,7 +105,8 @@ def solve_quadratic_normal_eqs(gram: torch.Tensor, rhs: torch.Tensor,
 
 def fit_quadratic(regularizer, inputs: torch.Tensor, outputs: torch.Tensor,
                   weights: torch.Tensor, sample_mean: torch.Tensor,
-                  sample_inv_chol: torch.Tensor, mask=None):
+                  sample_inv_chol: torch.Tensor, mask=None,
+                  diagonal: bool = False):
     """One component's fit from samples ``[N, D]``, outputs and weights
     ``[N]``; entries where ``mask`` is False are ignored.  Returns
     ``(quad_term, lin_term, const_term)`` as
@@ -104,4 +116,4 @@ def fit_quadratic(regularizer, inputs: torch.Tensor, outputs: torch.Tensor,
     gram, rhs = weighted_normal_eqs(
         whiten(inputs, sample_mean, sample_inv_chol), outputs, weights)
     return solve_quadratic_normal_eqs(gram, rhs, regularizer, sample_mean,
-                                      sample_inv_chol)
+                                      sample_inv_chol, diagonal)

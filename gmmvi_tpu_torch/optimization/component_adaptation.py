@@ -152,7 +152,9 @@ def add_new_component(model: GmmState, meta: MetaState,
 
     d = model.num_dimensions
     c = torch.exp(2.0 * (des_entropy - 0.5 * d * (LOG_2PI + 1.0)) / d)
-    new_cov = c * torch.eye(d, dtype=torch.float32, device=model.device)
+    new_cov = c * (torch.ones(d, dtype=torch.float32, device=model.device)
+                   if model.diagonal else
+                   torch.eye(d, dtype=torch.float32, device=model.device))
 
     slot = torch.clamp(model.num_active, max=model.max_components - 1)
     has_room = model.num_active < model.max_components

@@ -1,9 +1,10 @@
 """Natural-gradient component updates: direct (codename letter I), iBLR
 (Y) and the KL trust-region update (T).
 
-(JAX counterpart: gmmvi_tpu/optimization/component_updaters.py, the
-full-covariance paths: ``direct_update``, ``iblr_update`` and the bracket
-path ``_trust_region_update_pallas``)
+(JAX counterpart: gmmvi_tpu/optimization/component_updaters.py,
+``direct_update``, ``iblr_update``, the full-covariance bracket path
+``_trust_region_update_pallas`` and, for diagonal models, the vmapped
+``_tr_update_one`` with ``_tr_kl_diag``)
 
 The direct and iBLR updates take one step in precision space at the
 component's stepsize and rebuild the factors from one Cholesky of the
@@ -21,7 +22,10 @@ JAX package keeps that one in XLA: ``_tr_whitened_precompute`` and
 ``_tr_kl_whitened_trip``, selected where its kernel's envelope ends).  The
 accepted update is rebuilt at the found eta from one Cholesky of the
 flipped precision.  Failures are success masks: a failed component keeps
-its parameters.  The searches other than ``bracket`` are not ported yet.
+its parameters.  A diagonal model's updates are elementwise, and its
+search runs the same host loop around the elementwise KL
+(:func:`_tr_kl_diag`).  The searches other than ``bracket`` are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -86,7 +90,11 @@ def _chol_pair_from_prec(new_prec: torch.Tensor):
 
 def _old_canonical(model: GmmState):
     """Precisions ``L^-T L^-1`` and linear terms ``Lam mu`` of the
-    components, from the cached inverse factors."""
+    components, from the cached inverse factors (elementwise for a
+    diagonal model)."""
+    if model.diagonal:
+        old_prec = torch.square(model.inv_chols)
+        return old_prec, old_prec * model.means
     old_prec = torch.einsum("kji,kjl->kil", model.inv_chols, model.inv_chols)
     return old_prec, torch.einsum("kij,kj->ki", old_prec, model.means)
 
@@ -108,9 +116,15 @@ def direct_update(model: GmmState, meta: MetaState,
     ``P' mu' = P mu + s (H mu - g)``; the mean is solved with the new
     factors, ``mu' = L' L'^T (P' mu')``.  A component fails where the new
     factor or mean has a NaN."""
-    _full_cov_only(model)
     old_prec, old_lin = _old_canonical(model)
     s = stepsizes
+    if model.diagonal:
+        delta_lin = hessians_neg * model.means - grads_neg
+        new_prec = old_prec + s[:, None] * hessians_neg
+        new_lin = old_lin + s[:, None] * delta_lin
+        new_chol = torch.sqrt(1.0 / new_prec)
+        return _finish_diag(model, meta, torch.isnan(new_chol).any(dim=-1),
+                            new_lin / new_prec, new_chol)
     delta_lin = torch.einsum("kij,kj->ki", hessians_neg, model.means) \
         - grads_neg
     new_prec = old_prec + s[:, None, None] * hessians_neg
@@ -134,10 +148,19 @@ def iblr_update(model: GmmState, meta: MetaState,
     H)`` (the curvature correction keeps ``P'`` positive definite) and
     ``mu' = mu - s Sigma g``, with no mean step on a component's first
     update.  A component fails where the new factor has a NaN."""
-    _full_cov_only(model)
     old_prec, _ = _old_canonical(model)
     s = stepsizes
     first = meta.num_received_updates == 0
+    if model.diagonal:
+        cov = torch.square(model.chols)
+        correction = 0.5 * s[:, None] * hessians_neg * cov * hessians_neg
+        new_prec = old_prec + s[:, None] * (hessians_neg + correction)
+        mean_step = s[:, None] * cov * (-grads_neg)
+        new_mean = torch.where(first[:, None], model.means,
+                               model.means + mean_step)
+        new_chol = torch.sqrt(1.0 / new_prec)
+        return _finish_diag(model, meta, torch.isnan(new_chol).any(dim=-1),
+                            new_mean, new_chol)
     cov = model.chols @ model.chols.mT
     correction = 0.5 * s[:, None, None] * (hessians_neg @ cov
                                            @ hessians_neg)
@@ -153,10 +176,17 @@ def iblr_update(model: GmmState, meta: MetaState,
                           new_inv_chols=inv_chols)
 
 
-def _full_cov_only(model: GmmState) -> None:
-    if model.diagonal:
-        raise NotImplementedError(
-            "diagonal covariances are not ported yet (full covariances only)")
+def _finish_diag(model: GmmState, meta: MetaState, failed: torch.Tensor,
+                 new_mean: torch.Tensor, new_chol: torch.Tensor
+                 ) -> ComponentUpdateResult:
+    """A diagonal direct or iBLR step's end: the new mean and factor where
+    it succeeded (``failed`` False) and the slot is active, the inverse
+    factors made anew from the kept ones, as in the JAX package."""
+    success = ~failed
+    sel = (success & model.mask)[:, None]
+    return _finish_update(model, meta,
+                          torch.where(sel, new_mean, model.means),
+                          torch.where(sel, new_chol, model.chols), success)
 
 
 def _tr_final_full(eta, old_lin, old_prec, old_inv_chol, reward_lin,
@@ -228,6 +258,56 @@ def _tr_kl_whitened(etas, m_w, c, b1) -> torch.Tensor:
     return torch.where(bad, F32_MAX, kl)
 
 
+def _tr_kl_diag(eta, old_lin, old_prec, old_inv_chol, reward_lin,
+                reward_quad, old_mean):
+    """KL of the diagonal interpolation at etas [K] (the reference's
+    stabler elementwise form): ``(kl [K], new_mean, inv_chol_p)`` with
+    ``inv_chol_p = 1 / sqrt(new_prec)``; NaN where a new precision is
+    negative, which the bisection reads as "too large"."""
+    d = old_mean.shape[-1]
+    e = eta[:, None]
+    new_lin = (e * old_lin + reward_lin) / e
+    new_prec = (e * old_prec + reward_quad) / e
+    new_mean = new_lin / new_prec
+    inv_chol_p = 1.0 / torch.sqrt(new_prec)
+    diff = old_mean - new_mean
+    kl = 0.5 * (torch.clamp(torch.sum(torch.log(new_prec / old_prec)
+                                      + old_prec / new_prec, -1) - d, min=0.0)
+                + torch.sum(torch.square(old_inv_chol * diff), -1))
+    return kl, new_mean, inv_chol_p
+
+
+def _trust_region_update_diag(model: GmmState, meta: MetaState,
+                              hessians_neg, grads_neg, stepsizes,
+                              temperature, lower0, upper0
+                              ) -> ComponentUpdateResult:
+    """The trust-region step of a diagonal model: the reference's bracket
+    search around :func:`_tr_kl_diag` in lockstep over the slots (one flag
+    read per trip), then the parameters at the accepted eta."""
+    means, inv_chols = model.means, model.inv_chols
+    reward_lin = hessians_neg * means - grads_neg
+    old_prec, old_lin = _old_canonical(model)
+
+    def kl_at(etas):
+        return _tr_kl_diag(etas, old_lin, old_prec, inv_chols, reward_lin,
+                           hessians_neg, means)
+
+    exp_lower, exp_upper, _ = bracket_search(
+        lambda etas: kl_at(etas)[0], stepsizes, lower0, upper0,
+        active=model.mask)
+    eta = torch.clamp(exp_lower, min=temperature)
+    kl, new_means, inv_chol_p = kl_at(eta)
+    new_chols = torch.sqrt(torch.square(inv_chol_p))
+    success = (exp_lower == exp_upper) & (kl < F32_MAX) \
+        & ~torch.isnan(new_chols).any(dim=-1)
+    sel = (success & model.mask)[:, None]
+    return _finish_update(
+        model, meta, torch.where(sel, new_means, means),
+        torch.where(sel, new_chols, model.chols), success,
+        etas=torch.where(success, eta, -1.0),
+        new_inv_chols=torch.where(sel, 1.0 / new_chols, inv_chols))
+
+
 def trust_region_update(model: GmmState, meta: MetaState,
                         hessians_neg: torch.Tensor, grads_neg: torch.Tensor,
                         stepsizes: torch.Tensor, temperature: float = 1.0,
@@ -238,7 +318,17 @@ def trust_region_update(model: GmmState, meta: MetaState,
         raise NotImplementedError(
             f"trust-region search '{search}' is not ported yet (the port "
             "has 'bracket')")
-    _full_cov_only(model)
+    # the warm-started bracket in log space
+    last = meta.last_etas
+    no_warm = last < 0
+    log_last = torch.log(torch.abs(last) + 1e-30)
+    lower0 = torch.where(no_warm, -20.0, torch.clamp(log_last - 3.0,
+                                                     min=0.0))
+    upper0 = torch.where(no_warm, 80.0, log_last + 3.0)
+    if model.diagonal:
+        return _trust_region_update_diag(model, meta, hessians_neg,
+                                         grads_neg, stepsizes, temperature,
+                                         lower0, upper0)
     means, chols, inv_chols = model.means, model.chols, model.inv_chols
     reward_lin = torch.einsum("kij,kj->ki", hessians_neg, means) - grads_neg
     # the search and the rebuild see the symmetric part of the quadratic
@@ -247,12 +337,6 @@ def trust_region_update(model: GmmState, meta: MetaState,
     reward_quad = 0.5 * (hessians_neg + hessians_neg.mT)
     inp = prepare_tr_kl_inputs(means, chols, inv_chols, reward_lin,
                                reward_quad)
-    last = meta.last_etas
-    no_warm = last < 0
-    log_last = torch.log(torch.abs(last) + 1e-30)
-    lower0 = torch.where(no_warm, -20.0, torch.clamp(log_last - 3.0,
-                                                     min=0.0))
-    upper0 = torch.where(no_warm, 80.0, log_last + 3.0)
     if model.num_dimensions <= TR_KERNEL_MAX_D:
         exp_lower, exp_upper, _ = tr_search(inp, stepsizes, lower0, upper0,
                                             model.mask)

@@ -433,10 +433,7 @@ _SUPPORTED_TPU = {
 def _check_supported(config: dict) -> None:
     """Raise NotImplementedError naming the first setting of ``config``
     that the port does not have yet (every module of the codename matrix
-    is ported, for full covariances)."""
-    if config["model_initialization"].get("use_diagonal_covs", False):
-        raise NotImplementedError(
-            "diagonal covariances are not ported yet (full covariances only)")
+    is ported, for full and diagonal covariances)."""
     tpu_cfg = config.get("tpu", {}) or {}
     for key, allowed in _SUPPORTED_TPU.items():
         if key in tpu_cfg and tpu_cfg[key] not in allowed:

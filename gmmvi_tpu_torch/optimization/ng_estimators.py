@@ -25,6 +25,12 @@ MORE fits every component's quadratic surrogate of the log ratios by
 importance-weighted ridge regression: the weighted normal equations of all
 components come from kernel B8 (``ops/more.py``) in one pass, then one
 batched Cholesky solve and unwhitening (``ops/quadratic.py``).
+
+A diagonal model keeps the diagonals only, in plain torch as in the JAX
+package (B7 and B8 are not launched): the Stein Hessian is the elementwise
+``E[g * Lam_o (x - mu_o)]``, unsymmetrized, and MORE fits the full
+quadratic on elementwise-whitened samples, one component at a time, and
+keeps the diagonal of its quadratic term.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ import torch
 
 from gmmvi_tpu_torch.models.gmm import (DensityPack, GmmState, density_pack,
                                         log_densities_also_individual)
+from gmmvi_tpu_torch.models.gmm import diag_chunks
 from gmmvi_tpu_torch.ops import stein as stein_ops
-from gmmvi_tpu_torch.ops.more import more_grams
+from gmmvi_tpu_torch.ops.more import more_grams, more_grams_plain
 from gmmvi_tpu_torch.ops.quadratic import solve_quadratic_normal_eqs
 from gmmvi_tpu_torch.ops.stable import (NEG_INF, masked_logsumexp,
                                         signed_weighted_logsumexp)
@@ -45,8 +52,16 @@ _STANDARD_IW_CHUNK = 1 << 24
 
 
 class NgEstimate(NamedTuple):
-    expected_hessians_neg: torch.Tensor   # [Kmax, D, D]
+    expected_hessians_neg: torch.Tensor   # [Kmax, D, D] ([Kmax, D] diag)
     expected_gradients_neg: torch.Tensor  # [Kmax, D]
+
+
+def _diag_prec_times_diffs(model: GmmState, samples: torch.Tensor, lo: int,
+                           hi: int) -> torch.Tensor:
+    """``[hi - lo, N, D]`` ``inv_k * (inv_k * (x - mu_k))`` of a diagonal
+    model's components ``lo:hi``."""
+    inv = model.inv_chols[lo:hi, None, :]
+    return inv * (inv * (samples[None, :, :] - model.means[lo:hi, None, :]))
 
 
 def _per_component_log_iw(model, comp_log_densities, background, sample_mask,
@@ -115,9 +130,20 @@ def _stein_standard_iw(model: GmmState, log_iw, mask, log_ratio_grads,
     ``[Kmax, N, D]`` and ``[N, D, D]`` arrays are never formed whole."""
     n, d = samples.shape
     counts = torch.clamp(mask.sum(dim=1, dtype=samples.dtype), min=1.0)
+    hess, grad = [], []
+    if model.diagonal:
+        # the elementwise terms g[n, d] ptd[n, d]
+        for k in range(model.max_components):
+            lw = torch.where(mask[k], log_iw[k], NEG_INF)[:, None]
+            grad.append(signed_weighted_logsumexp(
+                lw, log_ratio_grads, dim=0) / counts[k])
+            vals = log_ratio_grads * _diag_prec_times_diffs(
+                model, samples, k, k + 1)[0]
+            hess.append(signed_weighted_logsumexp(lw, vals, dim=0)
+                        / counts[k])
+        return torch.stack(hess), torch.stack(grad)
     lam = model.inv_chols.mT @ model.inv_chols                   # [K, D, D]
     chunk = max(1, _STANDARD_IW_CHUNK // (d * d))
-    hess, grad = [], []
     for k in range(model.max_components):
         lw = torch.where(mask[k], log_iw[k], NEG_INF)
         grad.append(signed_weighted_logsumexp(
@@ -146,8 +172,9 @@ def stein_estimate(
 ) -> NgEstimate:
     """Stein's-lemma estimate.  With self-normalized importance weights
     (normalized twice, as in the reference) the Hessian is taken in moment
-    form and symmetrized; with standard ones it is the reference's stable
-    expectation, unsymmetrized (:func:`_stein_standard_iw`)."""
+    form and symmetrized (a diagonal model's: its diagonal, directly); with
+    standard ones it is the reference's stable expectation, unsymmetrized
+    (:func:`_stein_standard_iw`)."""
     if pack is None:
         pack = density_pack(model, samples)
     log_ratio_grads = target_grads - pack.model_grads             # [N, D]
@@ -162,6 +189,13 @@ def stein_estimate(
     w = _self_normalized(log_iw, mask)
 
     grad = w @ log_ratio_grads                                    # [K, D]
+    if model.diagonal:
+        n, d = samples.shape
+        hess = torch.cat([
+            torch.einsum("kn,nd,knd->kd", w[lo:hi], log_ratio_grads,
+                         _diag_prec_times_diffs(model, samples, lo, hi))
+            for lo, hi in diag_chunks(model.max_components, n, d)])
+        return NgEstimate(-hess, -grad)
     lam = model.inv_chols.mT @ model.inv_chols                    # [K, D, D]
     active = model.mask
     shift = torch.where(active[:, None], model.means, 0.0).sum(0) \
@@ -193,7 +227,8 @@ def more_estimate(
 ) -> NgEstimate:
     """Zero-order estimate through a quadratic surrogate of the log ratios
     ``log p(x) - log q(x)`` fitted per component: ``Hneg = quad``,
-    ``gneg = quad mu - lin``.  Standard importance weights are the raw
+    ``gneg = quad mu - lin`` (diagonal model: ``Hneg = diag(quad)``,
+    ``gneg = Hneg * mu - lin``).  Standard importance weights are the raw
     ``exp(log_iw)``, as in the reference (it overflows past about 88)."""
     if pack is None:
         model_densities, comp_log_densities = log_densities_also_individual(
@@ -209,6 +244,14 @@ def more_estimate(
         w = _self_normalized(log_iw, mask)
     else:
         w = torch.where(mask, torch.exp(log_iw), 0.0)
+    if model.diagonal:
+        gram, rhs = more_grams_plain(model.inv_chols, model.means, w,
+                                     log_ratios, samples)
+        quad, lin, _ = solve_quadratic_normal_eqs(
+            gram, rhs, l2_regularizers, model.means, model.inv_chols,
+            diagonal=True)
+        hneg = torch.diagonal(quad, dim1=-2, dim2=-1)
+        return NgEstimate(hneg, hneg * model.means - lin)
     gram, rhs = more_grams(model.inv_chols, model.means, w, log_ratios,
                            samples)
     quad, lin, _ = solve_quadratic_normal_eqs(gram, rhs, l2_regularizers,

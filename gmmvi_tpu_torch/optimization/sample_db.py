@@ -25,6 +25,10 @@ distinct ones are counted, the ``max_background_dists`` most used kept (in
 sample by kernel B4 (``ops/background.py``, whose plain version is the JAX
 package's ``_dist_log_pdfs`` chain).  Counts and the selection table are
 scatters into spill-binned tensors, so no step reads the device.
+
+A diagonal model's ring holds ``[R, Kmax, D]`` square roots of the
+variances and their reciprocals, and its background mixture is plain
+torch (the JAX package's XLA chain), so B4 is not launched.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from typing import Tuple
 import torch
 
 from gmmvi_tpu_torch.device import resolve_device
-from gmmvi_tpu_torch.models.gmm import DensityPack, GmmState, density_pack
+from gmmvi_tpu_torch.models.gmm import (LOG_2PI, DensityPack, GmmState,
+                                        density_pack, diag_half_maha)
 from gmmvi_tpu_torch.ops.background import background_logpdf
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 
@@ -52,8 +57,8 @@ class SampleDbState:
     num_samples_written: torch.Tensor  # 0-d int32: function evaluations
     # distribution ring
     dist_means: torch.Tensor           # [R, Kmax, D]
-    dist_chols: torch.Tensor           # [R, Kmax, D, D]
-    dist_inv_chols: torch.Tensor       # [R, Kmax, D, D]
+    dist_chols: torch.Tensor           # [R, Kmax, D, D] ([R, Kmax, D] diag)
+    dist_inv_chols: torch.Tensor       # [R, Kmax, D, D] ([R, Kmax, D] diag)
     dist_block_iter: torch.Tensor      # [R] int32, -1 = empty
     # reservoir
     res_samples: torch.Tensor          # [C, D]
@@ -86,15 +91,13 @@ def create_sample_db(dim: int, max_components: int, capacity: int,
                      dist_ring_iters: int, reservoir_capacity: int,
                      diagonal: bool = False, keep_samples: bool = True,
                      device="cuda") -> SampleDbState:
-    if diagonal:
-        raise NotImplementedError(
-            "diagonal covariances are not ported yet (full covariances only)")
     device = resolve_device(device)
     s, r, kmax, c = capacity, dist_ring_iters, max_components, \
         reservoir_capacity
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    eye = torch.eye(dim, **f32).expand(r, kmax, dim, dim).contiguous()
+    eye = (torch.ones((r, kmax, dim), **f32) if diagonal else
+           torch.eye(dim, **f32).expand(r, kmax, dim, dim).contiguous())
     return SampleDbState(
         samples=torch.zeros((s, dim), **f32),
         target_lnpdfs=torch.zeros((s,), **f32),
@@ -241,11 +244,28 @@ def _gather_dists(db: SampleDbState, keys: torch.Tensor):
     ``row * Kmax + comp``."""
     d = db.dist_means.shape[-1]
     keys = keys.long()
-    chols = db.dist_chols.reshape(-1, d, d)[keys]
-    log_dets = torch.sum(torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)),
-                         -1)
+    factor = (d,) if db.diagonal else (d, d)
+    chols = db.dist_chols.reshape(-1, *factor)[keys]
+    log_dets = torch.sum(torch.log(
+        chols if db.diagonal else torch.diagonal(chols, dim1=-2, dim2=-1)),
+        -1)
     return (db.dist_means.reshape(-1, d)[keys],
-            db.dist_inv_chols.reshape(-1, d, d)[keys], log_dets)
+            db.dist_inv_chols.reshape(-1, *factor)[keys], log_dets)
+
+
+def _background(db: SampleDbState, means, inv_chols, log_weights, log_dets,
+                samples) -> torch.Tensor:
+    """The count-weighted background log-density ``[N]`` over the rows
+    with a finite log weight: kernel B4 (``background_logpdf``), or for a
+    diagonal ring the JAX package's XLA chain in plain torch
+    (``_dist_log_pdfs`` then ``masked_logsumexp``)."""
+    if not db.diagonal:
+        return background_logpdf(means, inv_chols, log_weights, log_dets,
+                                 samples)
+    log_pdfs = diag_half_maha(means, inv_chols, samples) \
+        - log_dets[:, None] - 0.5 * means.shape[1] * LOG_2PI
+    return masked_logsumexp(log_pdfs + log_weights[:, None],
+                            mask=(log_weights > NEG_INF)[:, None], dim=0)
 
 
 def _count(bins: torch.Tensor, size: int) -> torch.Tensor:
@@ -296,8 +316,8 @@ def get_newest_samples(db: SampleDbState, window: int,
     means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
     # (the counts are float32, as in the JAX package; a float64 state
     # takes their logarithms exactly)
-    bg = background_logpdf(means_u, inv_u, log_weights.to(means_u.dtype),
-                           log_dets_u, samples)
+    bg = _background(db, means_u, inv_u, log_weights.to(means_u.dtype),
+                     log_dets_u, samples)
     return SampleWindow(
         samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
         target_grads=grads, background_log_pdfs=bg, valid=valid,
@@ -353,9 +373,9 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
         means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
         # all U rows: the kernel skips the unselected ones, so the JAX
         # package's two-size ladder (a cond on the live count) is not needed
-        bg_old = background_logpdf(means_u, inv_u,
-                                   log_w_old.to(means_u.dtype), log_dets_u,
-                                   samples)
+        bg_old = _background(db, means_u, inv_u,
+                             log_w_old.to(means_u.dtype), log_dets_u,
+                             samples)
         bg_cur = masked_logsumexp(
             pack.component_log_densities + log_w_cur[:, None],
             mask=(counts_cur > 0)[:, None], dim=0)
@@ -396,7 +416,8 @@ def repad_db(db: SampleDbState, new_max_components: int, new_capacity: int
     new = db
     if k_extra > 0:
         r = db.ring_iters
-        pad_chol = torch.eye(d, **f32).expand(r, k_extra, d, d)
+        pad_chol = (torch.ones((r, k_extra, d), **f32) if db.diagonal else
+                    torch.eye(d, **f32).expand(r, k_extra, d, d))
         new = new.replace(
             dist_means=torch.cat([db.dist_means,
                                   torch.zeros((r, k_extra, d), **f32)], 1),

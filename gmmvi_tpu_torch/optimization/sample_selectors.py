@@ -130,8 +130,7 @@ def _propose_mixture(model: GmmState, win, num_reused: torch.Tensor,
         n_eff = torch.zeros((), dtype=torch.int32, device=model.device)
     count = torch.clamp(n_des - n_eff, min=1)
     mapping = mapping.long()
-    fresh = model.means[mapping] + torch.einsum(
-        "nij,nj->ni", model.chols[mapping], eps)
+    fresh = gmm_ops.draw_at(model, mapping, eps)
     return Proposal(
         samples=fresh,
         valid=torch.arange(n_des, device=model.device) < count,

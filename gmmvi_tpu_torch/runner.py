@@ -183,10 +183,9 @@ class GmmviRunner:
     def _dump(self, path: str) -> None:
         model = self.gmmvi.state.model
         k = int(model.num_active)
-        chols = model.chols[:k]
         np.savez(path, weights=model.weights[:k].cpu().numpy(),
                  means=model.means[:k].cpu().numpy(),
-                 covs=(chols @ chols.mT).cpu().numpy(),
+                 covs=model.covs[:k].cpu().numpy(),
                  timestamps=time.time(),
                  fevals=int(self.gmmvi.state.db.num_samples_written))
 

@@ -117,6 +117,17 @@ def test_density_main_path_magnitudes_equal_bits(dev, n, scattered):
                                                 scattered=scattered))
 
 
+@pytest.mark.parametrize("k,d,n,n_live", [
+    (24, 31, 7200, 4), (24, 25, 7200, 4), (600, 10, 60000, 300)])
+def test_density_at_the_paper_experiments_shapes(dev, k, d, n, n_live):
+    """B1 and B2 at the shapes of the logistic-regression runs (D = 31 and
+    25: the unrolled DK = 32 and 28 instances with zero-padded lanes, 24
+    slots) and of planar_robot_4 (D = 10, 600 slots of which 300 are
+    live): within the bar, -inf slots -inf, equal bits on two calls."""
+    _check_density([t.to(dev) for t in _mixture(k, d, n, k - n_live,
+                                                 seed=k + d)])
+
+
 @pytest.mark.parametrize("k,d", [(48, 20), (5, 1), (9, 6), (3, 64)])
 def test_tr_kl_kernel_matches_plain(dev, k, d):
     """B3 against its plain version: F32_MAX in the same places (eta <= 0,
@@ -154,10 +165,19 @@ def test_tr_search_kernel_equals_host_loop(dev, d):
     warm starts, KL bounds over three decades, infeasible small etas, a
     bracket narrower than the width stop, inactive slots with NaN
     rewards (as MORE leaves them), K = 48."""
+    _search_equals_host_loop(dev, 48, d)
+
+
+def test_tr_search_at_planar_robot_width(dev):
+    """The same at planar_robot_4's width: 600 blocks at D = 10, their
+    trips differing widely between components."""
+    _search_equals_host_loop(dev, 600, 10)
+
+
+def _search_equals_host_loop(dev, k, d):
     from gmmvi_tpu_torch.ops import cuda
     from gmmvi_tpu_torch.ops import trust_region as tops
 
-    k = 48
     g = torch.Generator().manual_seed(100 + d)
     means = torch.randn(k, d, generator=g) * 3
     a = torch.randn(k, d, d, generator=g)
@@ -199,6 +219,25 @@ def test_tr_search_kernel_equals_host_loop(dev, d):
         (got[0] == got[1]).all())
 
 
+def test_background_kernel_at_planar_robot_width(dev):
+    """B4 at planar_robot_4's finalize pass: U = 2,048 rows, all live, over
+    N = 180,000 samples at D = 10, against the plain version taken over
+    slices of 30,000 samples (each sample's value is its own; the whole
+    [U, N, D] intermediates would take ~45 GB): within rtol 1e-4 /
+    atol 2e-4, equal bits on two calls."""
+    from gmmvi_tpu_torch.ops import background as bops
+
+    args = [t.to(dev) for t in _mixture(2048, 10, 180000, 0, seed=7)]
+    got = bops.background_logpdf(*args)
+    again = bops.background_logpdf(*args)
+    want = torch.cat([bops.background_logpdf_plain(*args[:4], x)
+                      for x in args[4].split(30000)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("u,d,n,n_masked", [
     (192, 20, 28800, 64), (7, 5, 600, 2), (70, 60, 520, 23),
     (5, 128, 77, 0), (1, 1, 33, 0), (4, 3, 10, 4), (300, 6, 1000, 150),
@@ -234,11 +273,13 @@ def test_background_kernel_matches_plain(dev, u, d, n, n_masked):
 @pytest.mark.parametrize("k,d,n,n_masked", [
     (24, 20, 2000, 0), (48, 20, 2000, 24), (96, 20, 16384, 40),
     (5, 3, 50, 5), (7, 33, 129, 0), (3, 128, 64, 1), (1, 1, 31, 0),
-    (4, 136, 300, 1)])
+    (4, 136, 300, 1), (24, 31, 16384, 20), (48, 25, 2000, 30),
+    (600, 10, 16384, 300)])
 def test_mixture_logpdf_kernel_matches_plain(dev, k, d, n, n_masked):
     """B9 against its plain version at rtol / atol 1e-4 (the Pallas
     kernel's bar), at the runner path's shapes (2,000 evaluation draws,
-    16,384 add candidates) and others; -inf in the same places (every slot
+    16,384 add candidates), at the paper experiments' D = 31, 25 and 10
+    (600 slots) and others; -inf in the same places (every slot
     masked); two calls give the same bits.  Above D = 128 it takes B5 and
     counts there."""
     from gmmvi_tpu_torch.ops import cuda

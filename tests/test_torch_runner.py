@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import (as_float64, jax_state_from_leaves,
+from torch_parity import (as_float64, jax_eval_draws, jax_state_from_leaves,
                           jax_state_leaves, jax_step_draws,
                           jax_target_in_float64, port_target_to_float64,
                           xdist_lock)
@@ -219,22 +219,6 @@ def test_marginal_log_density_matches_jax():
 # The JAX runner's run at the recipe's size, shared by the tests below
 # ---------------------------------------------------------------------------
 
-def _jax_eval_draws(eval_key, model, dtype=jnp.float32):
-    """The component indices and normals (of the model's float type
-    ``dtype``) of the JAX runner's next evaluation
-    (``get_expensive_metrics`` from ``eval_key``) of ``model``, as tensors
-    for the port."""
-    from gmmvi_tpu.ops.stable import NEG_INF
-
-    _, key = jax.random.split(eval_key)
-    k_key, n_key = jax.random.split(key)
-    comp = jax.random.categorical(
-        k_key, jnp.where(model.mask, model.log_weights, NEG_INF),
-        shape=(2000,))
-    eps = jax.random.normal(n_key, (2000, model.num_dimensions), dtype)
-    return _t(comp), _t(eps)
-
-
 def _jax_run():
     """RUN_ITERS iterations of the JAX runner from 4 slots: each step's
     draws (at the capacity the step grew to first) and, at an evaluation,
@@ -248,7 +232,7 @@ def _jax_run():
         outputs.append(jr.iterate_and_log(n))
         draws.append((jax_step_draws(
             jr.gmmvi, key=key, kmax=jr.gmmvi.state.model.max_components),
-            _jax_eval_draws(eval_key, jr.gmmvi.state.model)
+            jax_eval_draws(eval_key, jr.gmmvi.state.model)
             if n % jr.log_metrics_interval == 0 else None))
     leaves.append(jax_state_leaves(jr.gmmvi.state))
     for out in outputs:
@@ -384,7 +368,7 @@ def _jax_run_float64():
             draws.append((jax_step_draws(jr.gmmvi, key=key,
                                          kmax=model.max_components,
                                          dtype=jnp.float64),
-                          _jax_eval_draws(eval_key, model, jnp.float64)
+                          jax_eval_draws(eval_key, model, jnp.float64)
                           if n % jr.log_metrics_interval == 0 else None))
     for out in outputs:
         out.pop("walltime")
@@ -457,7 +441,7 @@ def test_expensive_metrics_match_jax(jax_run):
     tr.gmmvi.grow_capacity(int(leaves[-1]["model.log_weights"].shape[0]))
     tr.gmmvi.state = gmmvi_tpu_torch.state_from_numpy(
         leaves[-1], device="cpu", like=tr.gmmvi.state)
-    draws = _jax_eval_draws(jr._eval_key, jr.gmmvi.state.model)
+    draws = jax_eval_draws(jr._eval_key, jr.gmmvi.state.model)
     want = jr.get_expensive_metrics()
     got = tr.get_expensive_metrics(draws=draws)
     for key in ("-elbo", "entropy", "target_density"):
@@ -604,13 +588,18 @@ def test_gmm_target_matches_jax(maker):
     assert smp.shape == (64, d) and torch.isfinite(smp).all()
 
 
-def test_diagonal_gmm_target_is_not_ported():
+def test_target_registry_builds_ported_and_names_missing():
+    """The registry builds the GMM targets, the diagonal one too (ported
+    since; held against JAX in test_torch_targets.py), and names a target
+    that is not ported yet."""
     from gmmvi_tpu_torch.experiments.setup import get_target_lnpdf
 
-    with pytest.raises(NotImplementedError, match="diagonal"):
-        get_target_lnpdf("DIAGGMM", {"num_dimensions": 3}, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="Talos"):
+        get_target_lnpdf("Talos", {}, 0, device="cpu")
     t = get_target_lnpdf("GMM", {"num_dimensions": 3}, 0, device="cpu")
     assert t.get_num_dimensions() == 3
+    t = get_target_lnpdf("DIAGGMM", {"num_dimensions": 3}, 0, device="cpu")
+    assert t.get_num_dimensions() == 3 and t._state.diagonal
 
 
 def test_stm_marginals_sampling_and_metrics_match_jax():

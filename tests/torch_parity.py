@@ -163,6 +163,23 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     return draws
 
 
+def jax_eval_draws(eval_key, model, dtype=jnp.float32):
+    """The component indices and normals (of the model's float type
+    ``dtype``) of the JAX runner's next evaluation
+    (``get_expensive_metrics`` from ``eval_key``) of ``model``, as tensors
+    for the port."""
+    from gmmvi_tpu.ops.stable import NEG_INF
+
+    _, key = jax.random.split(eval_key)
+    k_key, n_key = jax.random.split(key)
+    comp = jax.random.categorical(
+        k_key, jnp.where(model.mask, model.log_weights, NEG_INF),
+        shape=(2000,))
+    eps = jax.random.normal(n_key, (2000, model.num_dimensions), dtype)
+    return (torch.as_tensor(np.array(comp)),
+            torch.as_tensor(np.array(eps)))
+
+
 @contextlib.contextmanager
 def xdist_lock(tmp_path_factory, name: str):
     """Hold an exclusive lock shared by this test run's pytest-xdist
@@ -206,7 +223,8 @@ def assert_states_match(t_named: dict, j_named: dict, rtol=1e-4,
 def mc_elbo(model_logpdf, target_logpdf, means, chols, log_weights,
             num_active, rng_state=99, n=2000, with_se=False):
     """ELBO estimate from n mixture draws made with numpy (component by
-    inverse CDF of shared uniforms, then mu + L eps); with ``with_se``,
+    inverse CDF of shared uniforms, then mu + L eps, or mu + sigma * eps for
+    a diagonal model's ``chols`` ``[K, D]``); with ``with_se``,
     (estimate, its Monte Carlo standard error)."""
     rng = np.random.RandomState(rng_state)
     k = num_active
@@ -214,7 +232,10 @@ def mc_elbo(model_logpdf, target_logpdf, means, chols, log_weights,
     comp = np.minimum(np.searchsorted(np.cumsum(w / w.sum()),
                                       rng.uniform(size=n)), k - 1)
     eps = rng.standard_normal((n, means.shape[1])).astype(np.float32)
-    x = means[comp] + np.einsum("nij,nj->ni", chols[comp], eps)
+    if chols.ndim == 2:                        # diagonal: standard deviations
+        x = means[comp] + chols[comp] * eps
+    else:
+        x = means[comp] + np.einsum("nij,nj->ni", chols[comp], eps)
     ratios = target_logpdf(x) - model_logpdf(x)
     if with_se:
         return float(np.mean(ratios)), float(np.std(ratios) / np.sqrt(n))
@@ -243,15 +264,19 @@ def jax_state_from_leaves(like, named: dict):
 
 
 def port_target_to_float64(target) -> None:
-    """The port's Student-T or GMM target ``target`` evaluated in float64
-    from here on, in place: the Student-T's float32 parameters (factored
-    in float64 on the host) cast exactly, the GMM's factors made anew in
+    """The port's Student-T, GMM or full-batch logistic-regression target
+    ``target`` evaluated in float64 from here on, in place: the Student-T's
+    and the regression's float32 parameters (the Student-T's factored in
+    float64 on the host) and data cast exactly, the GMM's factors made anew in
     float64 from its float32 covariances (in float32 the factors of the
     star target's covariances, condition number 100, carry rounding that
     its gradients magnify; JAX's float64 copy does the same)."""
     from gmmvi_tpu_torch.models.gmm import create_gmm_state
 
-    if hasattr(target, "_inv_chols"):                    # Student-T mixture
+    if hasattr(target, "labels"):                        # logistic regr.
+        for name in ("data", "labels"):
+            setattr(target, name, getattr(target, name).double())
+    elif hasattr(target, "_inv_chols"):                  # Student-T mixture
         for name in ("_means", "_chols", "_inv_chols", "_log_dets",
                      "_log_w"):
             setattr(target, name, getattr(target, name).double())
@@ -262,8 +287,9 @@ def port_target_to_float64(target) -> None:
 
 
 def jax_target_in_float64(target):
-    """A copy of JAX's Student-T or GMM target ``target`` that evaluates in
-    float64 under ``jax.enable_x64(True)`` (call it there).  Its
+    """A copy of JAX's Student-T, GMM or full-batch logistic-regression
+    target ``target`` that evaluates in float64 under
+    ``jax.enable_x64(True)`` (call it there).  Its
     parameters are the original's float32 values cast exactly (the GMM's
     factors made anew in float64 from its covariances, as
     :func:`port_target_to_float64` does); its
@@ -273,6 +299,7 @@ def jax_target_in_float64(target):
     import copy
 
     from gmmvi_tpu.experiments.targets import gmm as jtg
+    from gmmvi_tpu.experiments.targets import logistic_regression as jlr
     from gmmvi_tpu.experiments.targets import student_t_mixture as jstm
     from gmmvi_tpu.models import gmm as jgmm
 
@@ -302,8 +329,31 @@ def jax_target_in_float64(target):
         def log_density_and_grad(self, x):
             return jgmm.log_density_and_grad(self._state, x)[:2]
 
+    class LogReg64(type(target)):
+        def _z(self, theta):
+            return -jnp.einsum("nf,pf->np", self.data, theta,
+                               precision=jax.lax.Precision.HIGHEST)
+
+        def log_density(self, theta):
+            z = self._z(theta)
+            return jnp.sum(jlr._stable_loglik_terms(z, self.labels), axis=0) \
+                + self.log_prior(theta)
+
+        def log_density_and_grad(self, theta):
+            # jlr.LogisticRegression.log_density_and_grad's formula
+            z = self._z(theta)
+            coeff = jax.nn.sigmoid(z) - self.labels[:, None]
+            grad = jnp.einsum("np,nf->pf", coeff, self.data,
+                              precision=jax.lax.Precision.HIGHEST) \
+                - (theta - self.prior_mean) / self.prior_std ** 2
+            return self.log_density(theta), grad
+
     out = copy.copy(target)
-    if isinstance(target, jstm.StudentTMixture_LNPDF):
+    if isinstance(target, jlr.LogisticRegression) and \
+            not isinstance(target, jlr.LogisticRegression_minibatch):
+        out.__class__ = LogReg64
+        out.data, out.labels = f64(target.data), f64(target.labels)
+    elif isinstance(target, jstm.StudentTMixture_LNPDF):
         out.__class__ = StudentT64
         for name in ("_chols", "_inv_chols", "_log_dets", "_log_w"):
             setattr(out, name, f64(getattr(target, name)))
