@@ -66,9 +66,23 @@ printing one JSON line:
    to finite metrics and fevals) and planar_robot_4 (D = 10, 300 initial
    components in Kmax = 600 slots, U = 2,048 background rows, 300
    iterations, 130 if the median step passes 150 ms; held to a mode at
-   each of the four goals), each with B1, B2, B3's search, B4 and B9
-   launched.  Every path prints its median step ms, fevals and launch
-   counts;
+   each of the four goals) and talos (the Talos humanoid's IK posterior,
+   D = 34, one component in 24 slots, U = 96, n = 0..500 with evaluations
+   at 0 and 500, cut to 0..250 with an evaluation every 250 if the median
+   of steps 1-50 passes 150 ms; held to a finite state and an ELBO at the
+   last evaluation at or above the floor from the JAX package's CPU runs,
+   its B1 and B2 launches at D = 34, through their run-time instance),
+   each with B1, B2, B3's search, B4 and B9 launched.  Then wine (the
+   11-8-8-1 BNN posterior, D = 177, 4 components in 24 slots, n = 0..200,
+   an evaluation every 25; the target keeps a host-side minibatch cursor,
+   so every step takes the host-target path): held to finite metrics,
+   each step's target call given exactly the next power of two of its
+   valid rows, fevals equal to the valid rows, B5, B6 and B7 launched and
+   none of B1-B4 or B8, an ELBO at iteration 200 above its first
+   evaluation's and at or above its floor, and a ``bi_test_loss`` at or
+   below its ceiling (both from the JAX package's CPU runs that end above
+   their start).  Every path prints its median step ms, fevals and
+   launch counts;
 5. every kernel once more, on the inputs of its last launch: B1 and B2 at
    each of their call sizes on each D = 20 path (SAMTRON; ZAMTRUX, B2 over
    the reuse and the total window; the runner, B1 over the GMM target's
@@ -81,13 +95,17 @@ printing one JSON line:
    (SAMTRON, ZAMTRUX, the runner); on the new paths B1 and B2 (SEMIDUG,
    standard-IW SAMTRON), B4 at both sizes (SEMIDUG), B5 and B6 (SEPYFUX)
    and B3's fused search (standard-IW SAMTRON); on the paper's experiments
-   B1, B2 and B3's fused search at each call size, B4 at both and B9 at
-   each; each against its plain version at the bar of phase 3, timed as
-   there, but for the paper's B1, B2 and B3 rows, held entry by entry
-   against the plain version in float64 within the bar plus the entry's
-   first-order float32 error bound (B3: its per-trip KL at every eta the
-   search visited), since on these posteriors float32 rounding of log
-   densities of 1e3-1e5 moves the gradient by up to 1e4 bars in any
+   and talos B1, B2 and B3's fused search at each call size, B4 at both
+   and B9 at each; on wine B5 at each entry and call size, B6 and B7;
+   each against its plain version at the bar of phase 3, timed as there.
+   One rule on every path (``float64_form_ok``): where a B1, B2, B3, B5
+   or B6 row misses that fixed bar, it is held entry by entry against the
+   plain version in float64 within the bar plus the entry's first-order
+   float32 error bound (B3: its per-trip KL at every eta the search
+   visited), and passes only if the kernel meets the bar against float64
+   itself or the float32 plain version misses it too (the row then shows
+   both counts): on the paper's posteriors float32 rounding of log
+   densities of 1e3-1e9 moves a gradient by up to 1e4 bars in any
    float32 arithmetic;
 6. diagonal covariances: SAMTRON with ``get_default_config("SAMTRON",
    "stm300")``'s settings and ``use_diagonal_covs`` on the 300-D diagonal
@@ -99,16 +117,19 @@ printing one JSON line:
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
-B5-B7, the runner for B9; the ``paths`` of B1-B6 and B9: their numbers on each
-path's last inputs), the card's name and power limit as
-``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``.
-Nothing is caught: any failure exits non-zero before that line.  Without
-a CUDA card it exits 1.
+B5-B7, the runner for B9; the ``paths`` of B1-B7 and B9: their numbers
+on each path's last inputs; each path's own counts are in its line), the
+card's name and power limit as ``nvidia-smi`` gives them, and last
+``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
+non-zero before that line.  Without a CUDA card it exits 1.  The script
+runs itself with ``PYTHONHASHSEED=0`` (re-executing if it was not set so),
+since the wine target orders its minibatches by ``hash(("bnn", seed))``.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -139,10 +160,10 @@ STANDARD_IW_ITERS = 30
 # the paths of B1 and B2 (D <= 128), and of the fused search (D <= 64)
 DENSITY_PATHS = ("SAMTRON", "ZAMTRUX", "gmm20", "SEMIDUG",
                  "SAMTRON-standard-IW", "breast_cancer", "german_credit",
-                 "breast_cancer_mb", "planar_robot_4")
+                 "breast_cancer_mb", "planar_robot_4", "talos")
 SEARCH_PATHS = ("SAMTRON", "ZAMTRUX", "gmm20", "SAMTRON-standard-IW",
                 "breast_cancer", "german_credit", "breast_cancer_mb",
-                "planar_robot_4")
+                "planar_robot_4", "talos")
 # stm300 (SAMTRON's defaults): Kmax 40 = max(2 x 20, 20 + 16) rounded to 8,
 # 100 fresh and 200 reused samples per component
 D_LARGE, KMAX_LARGE, N_DES_LARGE = 300, 40, 100
@@ -169,12 +190,88 @@ PAPER_PATHS = {
     "german_credit": (300, (25, 24, 100, 200, 96, 20)),
     "breast_cancer_mb": (30, (31, 24, 100, 200, 96, 20)),
     "planar_robot_4": (300, (10, 600, 100, 200, 2048, 10)),
+    "talos": (501, (34, 24, 100, 200, 96, 500)),
 }
 PLANAR_STEP_MS_CAP, PLANAR_ITERS_CUT = 150.0, 130
+# talos: n = 0..250 with an evaluation every 250 if the median of steps
+# 1-50 passes 150 ms
+TALOS_STEP_MS_CAP, TALOS_ITERS_CUT, TALOS_INTERVAL_CUT = 150.0, 251, 250
+# wine through the runner, get_default_config("SAMTRON", "wine") with
+# nothing cut: n = 0..200, and (D, Kmax, n_des, reused,
+# max_background_dists, log_metrics_interval) as built
+WINE_ITERS, WINE_SHAPE = 201, (177, 24, 100, 200, 96, 25)
+
+
+def floor_from_runs(values) -> float:
+    """The lowest of the reference runs less their spread."""
+    return min(values) - (max(values) - min(values))
+
+
+# the JAX package's CPU runs of talos at start seeds 10000 to 10005
+# (scripts/jax_experiment_reference.py --seed S): the ELBO at iteration
+# 500.  Six seeds, not three: the JAX run at seed 10003 ends at 9.73,
+# below the floor of seeds 10000-10002 (10.20)
+TALOS_JAX_ELBO = (10.698097229003906, 11.198522567749023, 10.944807052612305,
+                  9.731943130493164, 10.915525436401367, 11.677129745483398)
+# the JAX package's CPU runs of wine at start seeds 10000 to 10011 with
+# PYTHONHASHSEED=0 (the BNN's batch order follows it; PYTHONHASHSEED=0
+# scripts/jax_experiment_reference.py --experiment wine --iters 201 --seed
+# S): per seed the ELBO at the first evaluation (n = 0) and at n = 200,
+# and bi_test_loss at 200
+WINE_JAX_RUNS = {
+    10000: (-89962.0555267334, -4678.126907348633,
+            0.7181400656700134),
+    10001: (-33378.00126647949, -10794.971145629883,
+            0.7492539286613464),
+    10002: (-44887.10607910156, -39231.145736694336,
+            0.9883115291595459),
+    10003: (-56394.299865722656, -6037.522552490234,
+            0.7246685028076172),
+    10004: (-52663.51387023926, -10347.961959838867,
+            0.7557579278945923),
+    10005: (-49234.77323913574, -24234.215118408203,
+            2.154249668121338),
+    10006: (-24604.391052246094, -8560.81575012207,
+            0.7929320335388184),
+    10007: (-37457.68522644043, -9421.151550292969,
+            0.8596848845481873),
+    10008: (-26068.436630249023, -5991.946441650391,
+            0.7125679850578308),
+    10009: (-37068.815338134766, -3412.9412841796875,
+            0.7626389265060425),
+    10010: (-53931.68991088867, -45288.90370178223,
+            1.5897871255874634),
+    10011: (-75501.66415405273, -13724.023162841797,
+            1.0074678659439087),
+}
+# a wine run whose bi_test_loss at 200 is at or above this is an
+# excursion: the method makes them in 15-30% of runs in every arithmetic
+# (the JAX package's on the CPU, the port's plain versions on the CPU and
+# on the card, its kernels on the card)
+WINE_EXCURSION_LOSS = 1.0
+
+
+def wine_sound_runs():
+    """The JAX runs of wine that are not excursions: (ELBO at 200,
+    bi_test_loss).  The bars are set from these; a heavy tail of
+    excursions would otherwise put the ELBO floor below the runs' start."""
+    return [(e, loss) for _, e, loss in WINE_JAX_RUNS.values()
+            if loss < WINE_EXCURSION_LOSS]
+
+
 # the last evaluation's ELBO must reach these: the JAX package's CPU runs
 # of the same config (scripts/jax_experiment_reference.py) end at -78.36
-# (breast_cancer, iteration 950) and -585.11 (german_credit, 280)
-ELBO_FLOOR = {"breast_cancer": -79.0, "german_credit": -585.6}
+# (breast_cancer, iteration 950) and -585.11 (german_credit, 280); talos's
+# and wine's are the lowest of their (sound) runs less their spread, and
+# wine's bi_test_loss must stay at or below the highest plus the spread
+ELBO_FLOOR = {"breast_cancer": -79.0, "german_credit": -585.6,
+              "talos": floor_from_runs(TALOS_JAX_ELBO),
+              "wine": floor_from_runs([e for e, _ in wine_sound_runs()])}
+WINE_TEST_LOSS_CEILING = -floor_from_runs(
+    [-loss for _, loss in wine_sound_runs()])
+# B1/B2's unrolled instances cover D <= this (gmmvi_tpu_torch/csrc/
+# density.cu, MAX_UNROLLED_D); 33 <= D <= 128 runs the run-time instance
+MAX_UNROLLED_D = 32
 # diagonal SAMTRON: stm300's defaults with diagonal covariances on the
 # 300-D diagonal GMM target; step 21 on the card against the CPU at the
 # one-step bar
@@ -291,7 +388,7 @@ def sass_phase() -> dict:
 # elements they run over slices of the samples (each sample's outputs are
 # its own) and are timed with fewer calls
 PLAIN_SLICE_ELEMS = 1 << 30
-# float32's unit roundoff; the float64 references of the paper paths' rows
+# float32's unit roundoff; the float64 references of the kernel rows
 # run over slices of the samples of at most this many [K, n, D] elements
 U32 = 2.0 ** -24
 BOUND_SLICE_ELEMS = 1 << 26
@@ -669,12 +766,27 @@ def density_bound(name, args, want) -> dict:
                 **({"responsible_pairs": pairs} if grads else {}))
 
 
-def measure_density(name, args, against_float64: bool = False) -> dict:
+def float64_form_ok(check: dict, outputs=None) -> bool:
+    """The one rule for a kernel that misses its fixed bar against its
+    plain version: ``check``, its comparison with the plain version in
+    float64 (entry by entry within the bar plus the entry's first-order
+    float32 bound), passes only if the kernel meets the bar itself there
+    or the float32 plain version misses the bar against float64 too
+    (float32 cannot meet it on these inputs).  ``outputs``: the per-output
+    dicts of ``check`` (B1, B2, B5), else ``check`` alone (B3's visited
+    KLs, B6)."""
+    parts = list(outputs.values()) if outputs else [check]
+    kernel = sum(o["beyond_bar"] for o in parts)
+    plain = sum(o["plain_beyond_bar"] for o in parts)
+    return bool(check["ok"]) and (kernel == 0 or plain > 0)
+
+
+def measure_density(name, args) -> dict:
     """B1 (``density_pack``) or B2 (``densities``) on ``args`` against its
-    plain version (``density_check``), or with ``against_float64`` (the
-    paper's paths) entry by entry against the plain version in float64
-    (``density_vs_float64``); device times and the bound these inputs need
-    (``density_bound``)."""
+    plain version at the fixed bar (``density_check``); where the kernel
+    misses it, against the plain version in float64
+    (``density_vs_float64``) under ``float64_form_ok``; device times and
+    the bound these inputs need (``density_bound``)."""
     import torch
 
     from gmmvi_tpu_torch.ops import density as dops
@@ -687,9 +799,13 @@ def measure_density(name, args, against_float64: bool = False) -> dict:
     again = fn(*args)
     want = plain()
     torch.cuda.synchronize()
-    check = (density_vs_float64(args, got, again, want) if against_float64
-             else density_check(got, again, want))
-    return dict(**check, components=means.shape[0],
+    check = density_check(got, again, want)
+    if not check["ok"]:
+        fixed = check
+        check = density_vs_float64(args, got, again, want)
+        check.update(fixed_bar=fixed, ok=float64_form_ok(
+            check, check["against_float64"]))
+    return dict(**check, components=means.shape[0], d=means.shape[1],
                 live_components=int((logw > -math.inf).sum()),
                 samples=x.shape[0], **density_bound(name, args, want),
                 ms=device_ms(lambda: fn(*args)),
@@ -703,7 +819,7 @@ def gamma(n: int) -> float:
     return n * U32 / (1 - n * U32)
 
 
-def density_float64(args, grads: bool):
+def density_float64(args, grads: bool, product_u: int = 1):
     """The plain version of B1 (``grads``) or B2 in float64 on ``args``,
     and per output entry ``s``, the first-order bound of how far float32
     arithmetic on these inputs can move it through what the outputs
@@ -718,7 +834,11 @@ def density_float64(args, grads: bool):
     density of 5e3 is off by up to 2.4e-4) and B1's online rescaling (at
     most K/4 rescales a group and the four groups' combine), gamma(3K + 32)
     + 2u (|w_k - model| + |model|) of sum_k r_k |v_k|.  Runs over slices of
-    the samples.  Returns ``(refs, bounds)``, each (comp, model[, grads])."""
+    the samples.  ``product_u``: the roundings, in units of u, of one
+    product term of the whitening (1 in fp32 FMA; B5's 3xTF32 products drop
+    the product of the operands' low halves and round each low half to
+    TF32, up to 12 u of |L||x - mu| more).  Returns ``(refs, bounds)``,
+    each (comp, model[, grads])."""
     import torch
 
     from gmmvi_tpu_torch.ops.density import LOG_2PI
@@ -738,7 +858,7 @@ def density_float64(args, grads: bool):
         a = torch.einsum("kij,knj->kni", absl, diff.abs())
         q = torch.sum(y * y, -1)
         comp = -0.5 * q + const
-        s_comp = gamma(d + 1) * torch.sum(y.abs() * a, -1) \
+        s_comp = gamma(d + product_u) * torch.sum(y.abs() * a, -1) \
             + 0.5 * gamma(d) * q + gamma(3) * (0.5 * q + const.abs())
         w = comp + logw[:, None]
         model = masked_logsumexp(w, mask=live, dim=0)
@@ -763,7 +883,9 @@ def density_float64(args, grads: bool):
     return cols[0::2], cols[1::2]
 
 
-def density_vs_float64(args, got, again, want) -> dict:
+def density_vs_float64(args, got, again, want, labels=None,
+                       atol: float = 5e-4, rtol: float = 1e-5,
+                       product_u: int = 1) -> dict:
     """B1's or B2's outputs ``got`` held entry by entry against the plain
     version in float64 on the same inputs: |got - ref| <= bar + s, the bar
     atol 5e-4 + rtol 1e-5 of ``ref`` and ``s`` the entry's float32 bound
@@ -777,20 +899,24 @@ def density_vs_float64(args, got, again, want) -> dict:
     a check of the bound.  Per output: the kernel's max |error|, its and
     the plain version's worst error over the bound, the entries where the
     kernel misses the bar, those whose bound passes the bar and the
-    bound's median over the bar."""
+    bound's median over the bar.  ``labels`` name the outputs ``got``
+    holds (B5's mixture-only entry: ("model",)), ``atol``/``rtol`` the bar
+    (B5's: 2e-3 / 2e-4), ``product_u`` as in ``density_float64``."""
     import torch
 
-    refs, bounds = density_float64(args, len(got) == 3)
+    labels = labels or ("comp", "model", "grads")[:len(got)]
+    refs, bounds = density_float64(args, "grads" in labels, product_u)
+    named = dict(zip(("comp", "model", "grads"), zip(refs, bounds)))
     out, ok, places = {}, True, True
-    for label, gv, pv, rv, sv in zip(("comp", "model", "grads"), got, want,
-                                     refs, bounds):
+    for label, gv, pv in zip(labels, got, want):
+        rv, sv = named[label]
         for where in (torch.isnan, torch.isposinf, torch.isneginf):
             places &= torch.equal(where(gv), where(rv))
         fin = torch.isfinite(rv)
         if not bool(fin.any()):
             raise AssertionError("an empty comparison: nothing was checked")
         rv, sv = rv[fin], sv[fin]
-        bar = 5e-4 + 1e-5 * rv.abs()
+        bar = atol + rtol * rv.abs()
         tol = bar + sv
         ek = (gv[fin].double() - rv).abs()
         ep = (pv[fin].double() - rv).abs()
@@ -799,6 +925,7 @@ def density_vs_float64(args, got, again, want) -> dict:
             worst_over_bound=float((ek / tol).max()),
             plain_worst_over_bound=float((ep / tol).max()),
             beyond_bar=int((ek > bar).sum()),
+            plain_beyond_bar=int((ep > bar).sum()),
             bound_beyond_bar=int((sv > bar).sum()),
             bound_over_bar_median=float((sv / bar).median()),
             entries=int(fin.sum()))
@@ -852,7 +979,7 @@ def measure_tr_kl(etas, inp) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def measure_tr_search(args, against_float64: bool = False) -> dict:
+def measure_tr_search(args) -> dict:
     """The fused search (B3, one launch) on ``args`` = (inputs, bounds,
     lower0, upper0, active): its etas (exp(lower), exp(upper)) and trips
     equal, bit for bit, to the host loop around B3's per-trip kernel and
@@ -860,10 +987,10 @@ def measure_tr_search(args, against_float64: bool = False) -> dict:
     around ``tr_kl_plain``) the number of components whose result differs
     (``differ_from_plain``: a KL within the plain version's 1e-4 agreement
     of a threshold can send a bracket the other way; held to at most one)
-    and the largest |difference| of exp(lower) there.  With
-    ``against_float64`` (the paper's paths) the per-trip KL is held instead
-    at every eta the search visited (``visited_kl_vs_float64``), and
-    ``differ_from_plain`` is reported.  Device ms per search (``ms``);
+    and the largest |difference| of exp(lower) there.  Where more than one
+    component differs, the per-trip KL is held instead at every eta the
+    search visited (``visited_kl_vs_float64``) under ``float64_form_ok``.
+    Device ms per search (``ms``);
     ``plain_ms`` and ``host_loop_ms``, the host loops' time per search
     (their syncs included).  The bound counts this run's trips: per trip a
     KL evaluation's FMAs (as ``measure_tr_kl``), the inputs read once."""
@@ -889,13 +1016,14 @@ def measure_tr_search(args, against_float64: bool = False) -> dict:
         differ |= ~((a == b) | (torch.isnan(a) & torch.isnan(b)))
     n_differ = int(differ.sum())
     err = float((got[0] - plain[0]).abs().max())
-    visited = visited_kl_vs_float64(args) if against_float64 else {}
+    fixed_ok = n_differ <= 1
+    visited = {} if fixed_ok else visited_kl_vs_float64(args)
     k, d = inp.means.shape
     trips = got[2].to(torch.float64)
     flops = 2 * float(trips.sum()) * kl_fmas(d)
     b_ms, b_by = bound_ms(flops, 4 * (k * (3 * d * (d + 1) / 2 + 3 * d + 4)
                                       + 3 * k) + k)
-    close = visited["ok"] if against_float64 else n_differ <= 1
+    close = fixed_ok or float64_form_ok(visited)
     return dict(max_abs_err=err, ok=same_bits and equal_loop and close,
                 same_bits=same_bits, equal_to_host_loop=equal_loop,
                 differ_from_plain=n_differ,
@@ -1025,6 +1153,7 @@ def visited_kl_vs_float64(args) -> dict:
                 worst_over_bound=float((ek / (bar + s)).max()),
                 plain_worst_over_bound=float((ep / (bar + s)).max()),
                 beyond_bar=int((ek > bar).sum()),
+                plain_beyond_bar=int((ep > bar).sum()),
                 bound_beyond_bar=int((s > bar).sum()),
                 bound_over_bar_median=float((s / bar).median()))
 
@@ -1151,7 +1280,11 @@ def measure_large_density(name, args) -> dict:
     ``mixture_logpdf_large`` (model alone, -inf rows skipped), against its
     plain version (rtol 2e-4, atol 2e-3; -inf in the same places), device
     times and the bound these inputs need: every computed row whitens every
-    sample against its lower triangle."""
+    sample against its lower triangle.  Where the kernel misses that bar,
+    it is held entry by entry against the plain version in float64 within
+    the bar plus the entry's first-order float32 bound
+    (``density_vs_float64``, with the error of B5's 3xTF32 products), with
+    equal bits on a second call, under ``float64_form_ok``."""
     import torch
 
     from gmmvi_tpu_torch.ops import density_large as dl
@@ -1166,6 +1299,18 @@ def measure_large_density(name, args) -> dict:
         fin = torch.isfinite(wv)
         errs.append(max_err(gv[fin], wv[fin], atol=2e-3, rtol=2e-4))
         ok = ok and torch.equal(torch.isneginf(gv), torch.isneginf(wv))
+    check = dict(max_abs_err=max(e[0] for e in errs),
+                 ok=ok and all(e[1] for e in errs))
+    if not check["ok"]:
+        again = fn(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        fixed = check
+        check = density_vs_float64(
+            args, got, again, want,
+            labels=("comp", "model") if len(got) == 2 else ("model",),
+            atol=2e-3, rtol=2e-4, product_u=13)
+        check.update(fixed_bar=fixed, ok=float64_form_ok(
+            check, check["against_float64"]))
     means, _, logw, _, x = args
     (k, d), n = means.shape, x.shape[0]
     comp_out = name == "densities_large"
@@ -1174,8 +1319,7 @@ def measure_large_density(name, args) -> dict:
     nbytes = 4 * (k + rows * (d + tri + 1) + n * d + n
                   + (k * n if comp_out else 0))
     b_ms, b_by = bound_ms(2 * rows * n * tri, nbytes)
-    return dict(max_abs_err=max(e[0] for e in errs),
-                ok=ok and all(e[1] for e in errs), rows=k, computed_rows=rows,
+    return dict(**check, rows=k, computed_rows=rows,
                 samples=n, ms=device_ms(lambda: fn(*args)),
                 plain_ms=device_ms(lambda: plain(*args), reps=11, batch=5),
                 bound_ms=b_ms, bound_by=b_by,
@@ -1183,11 +1327,102 @@ def measure_large_density(name, args) -> dict:
                                 nbytes / PEAK_BYTES_PER_S * 1e3))
 
 
+def grads_float64(args, product_u: int = 13):
+    """B6's plain version in float64 on ``args`` (means, inv_chols, logw,
+    comp, model, x; comp and model taken as given) and per entry ``s``, the
+    first-order bound of how far float32 arithmetic on these inputs can
+    move it, whatever the order of its sums: each v_k = L^T L (x - mu_k)
+    by gamma(D + product_u) |L^T| |L| |x - mu| + gamma(D) |L^T| |y| (the
+    plain version's two products; the kernel's one product with the
+    precision rounded once to float32, in 3xTF32, within the first term);
+    each r_k = exp(comp_k + log w_k - model) by r_k (gamma(2) (|comp_k| +
+    |log w_k| + |model|) + 2u) (the exponent's rounding, which log
+    densities of 1e3-1e9 far out in the tails make large); the sum over the
+    slots by gamma(K + product_u) sum_k r_k |v_k|.  A first-order bound
+    holds while the exponents' bound is small: a sample is ``determined``
+    where it is at most 1/8 (|comp| + |model| up to ~1e6) for every live
+    slot whose exponent can come above -87; beyond, float32 rounding of the inputs' log densities (1e7-1e9
+    for samples far out in the tails, where one unit in the last place is
+    1-100) leaves its responsibilities, and so its gradient, undetermined
+    in any float32 arithmetic.  Runs over slices of the samples.  Returns
+    ``(ref, s, determined [N])``."""
+    import torch
+
+    means, chol, logw, comp, model, x = [a.double() for a in args]
+    k, d = means.shape
+    step = max(1, BOUND_SLICE_ELEMS // (k * d))
+    live = (logw > -math.inf)[:, None]
+    absl = chol.abs()
+    refs, bounds, determined = [], [], []
+    for lo in range(0, x.shape[0], step):
+        hi = lo + step
+        diff = x[lo:hi][None] - means[:, None]                  # [K, n, D]
+        y = torch.einsum("kij,knj->kni", chol, diff)
+        v = torch.einsum("kji,knj->kni", chol, y)
+        a = torch.einsum("kij,knj->kni", absl, diff.abs())
+        s_v = gamma(d + product_u) * torch.einsum("kji,knj->kni", absl, a) \
+            + gamma(d) * torch.einsum("kji,knj->kni", absl, y.abs())
+        m = model[lo:hi][None, :]
+        mask = live & (m > -math.inf)
+        r = torch.where(mask, torch.exp(comp[:, lo:hi] + logw[:, None] - m),
+                        0.0)
+        expo = comp[:, lo:hi] + logw[:, None] - m
+        s_exp = gamma(2) * (comp[:, lo:hi].abs() + logw.abs()[:, None]
+                            + m.abs()) + 2 * U32
+        s_r = torch.where(mask, r * s_exp, 0.0)
+        # a slot whose exponent stays below -87 (r below float32's
+        # smallest normal) whatever its rounding adds nothing
+        loose = mask & (s_exp > 0.125) & (expo + s_exp > -87.0)
+        determined.append(~loose.any(0))
+        refs.append(-torch.einsum("kn,knd->nd", r, v))
+        bounds.append(torch.einsum("kn,knd->nd", r, s_v)
+                      + torch.einsum("kn,knd->nd", s_r, v.abs())
+                      + gamma(k + product_u)
+                      * torch.einsum("kn,knd->nd", r, v.abs()))
+    return torch.cat(refs), torch.cat(bounds), torch.cat(determined)
+
+
+def large_grads_vs_float64(args, got, want) -> dict:
+    """B6's ``got`` and the plain version's ``want`` held entry by entry
+    against ``grads_float64`` on the samples whose gradient float32
+    determines: |got - ref| <= bar + s, the bar atol 2e-3 + rtol 2e-3 of
+    ``ref``; on the others (``undetermined_samples``, counted) both finite;
+    the kernel's and the plain version's worst error over the bound, the
+    entries where each misses the bar, those whose bound passes it and the
+    bound's median over the bar."""
+    import torch
+
+    ref, s, det = grads_float64(args)
+    if not bool(det.any()):
+        raise AssertionError("an empty comparison: nothing was checked")
+    finite = bool(torch.isfinite(got[~det]).all()) \
+        and bool(torch.isfinite(want[~det]).all())
+    ref, s, got, want = ref[det], s[det], got[det], want[det]
+    bar = 2e-3 + 2e-3 * ref.abs()
+    tol = bar + s
+    ek = (got.double() - ref).abs()
+    ep = (want.double() - ref).abs()
+    return dict(ok=bool((ek <= tol).all()) and bool((ep <= tol).all())
+                and finite,
+                undetermined_samples=int((~det).sum()),
+                max_abs_err=float(ek.max()),
+                worst_over_bound=float((ek / tol).max()),
+                plain_worst_over_bound=float((ep / tol).max()),
+                beyond_bar=int((ek > bar).sum()),
+                plain_beyond_bar=int((ep > bar).sum()),
+                bound_beyond_bar=int((s > bar).sum()),
+                bound_over_bar_median=float((s / bar).median()),
+                entries=ref.numel())
+
+
 def measure_large_grads(args) -> dict:
     """B6 on ``args`` (means, inv_chols, logw, comp, model, x) against its
-    plain version (rtol and atol 2e-3) and equal bits on two calls; the
-    bound counts D^2 FMAs for each (component, sample) pair whose
-    responsibility is nonzero (``bound_tc_ms``: as three TF32 products),
+    plain version (rtol and atol 2e-3) and equal bits on two calls; where
+    the kernel misses that bar, held entry by entry against float64 within
+    the bar plus the entry's first-order float32 bound
+    (``large_grads_vs_float64``) under ``float64_form_ok``.  The bound
+    counts D^2 FMAs for each (component, sample) pair whose responsibility
+    is nonzero (``bound_tc_ms``: as three TF32 products),
     ``live_tile_pairs`` the (component, 64-sample tile) pairs the kernel
     walks."""
     import torch
@@ -1200,6 +1435,13 @@ def measure_large_grads(args) -> dict:
     torch.cuda.synchronize()
     err, ok = max_err(got, want, atol=2e-3, rtol=2e-3)
     same_bits = bool(torch.equal(got, again))
+    extra = {}
+    if not ok:
+        f64 = large_grads_vs_float64(args, got, want)
+        extra = dict(fixed_bar=dict(max_abs_err=err, ok=ok),
+                     against_float64=f64)
+        err = f64["max_abs_err"]
+        ok = float64_form_ok(f64)
     means, _, logw, comp, model, x = args
     (k, d), n = means.shape, x.shape[0]
     resp = torch.exp(comp + logw[:, None] - model[None, :])
@@ -1212,7 +1454,7 @@ def measure_large_grads(args) -> dict:
     nbytes = 4 * (k * (d + d * (d + 1) / 2 + 1) + k * n + n + 2 * n * d)
     b_ms, b_by = bound_ms(2 * pairs * d * d, nbytes)
     return dict(max_abs_err=err, ok=ok and same_bits, same_bits=same_bits,
-                components=k, samples=n, responsible_pairs=pairs,
+                **extra, components=k, samples=n, responsible_pairs=pairs,
                 live_tile_pairs=int(live_tiles.sum()), sample_tiles=tiles,
                 ms=device_ms(lambda: dl.density_grads_large(*args)),
                 plain_ms=device_ms(lambda: dl.density_grads_large_plain(*args),
@@ -1713,7 +1955,7 @@ def main_path_input_rows(captured, search_args) -> None:
                                  f"on the main path's inputs: {out}")
 
 
-PATH_FIELDS = ("samples", "components", "live_components", "rows",
+PATH_FIELDS = ("samples", "components", "live_components", "d", "rows",
                "live_rows", "computed_rows", "responsible_pairs",
                "live_tile_pairs", "max_abs_err", "equal_bits", "same_bits",
                "ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms")
@@ -1744,15 +1986,13 @@ def background_path_rows(captured, path: str) -> dict:
 
 def density_path_rows(densities: dict) -> dict:
     """B1 and B2 once more on the inputs of their last launch at each call
-    size on each path, held as in the kernel phase (the paper's paths
-    against float64); fails on a miss or where a path ran either kernel
-    never.  Returns per kernel, per
+    size on each path, held as in the kernel phase (``measure_density``);
+    fails on a miss or where a path ran either kernel never.  Returns per kernel, per
     "path K=.. N=..", its numbers."""
     out: dict = {"density_pack": {}, "densities": {}}
     for key in sorted(densities):
         name, path, k, n = key
-        row = measure_density(name, densities[key],
-                              against_float64=path in PAPER_PATHS)
+        row = measure_density(name, densities[key])
         emit({"phase": "kernel_on_main_path_inputs", "path": path,
               "name": name, **row})
         if not row["ok"]:
@@ -1760,6 +2000,9 @@ def density_path_rows(densities: dict) -> dict:
                                  f"on the {path} path's inputs: {row}")
         out[name][f"{path} K={k} N={n}"] = {
             f: row[f] for f in PATH_FIELDS if f in row}
+        if path == "talos" and not MAX_UNROLLED_D < row["d"] <= 128:
+            raise AssertionError(f"{name} on talos at D = {row['d']}, not "
+                                 f"through the run-time instance")
     for name, rows in out.items():
         for path in DENSITY_PATHS:
             if not any(label.startswith(path + " ") for label in rows):
@@ -1773,13 +2016,12 @@ LARGE_KERNELS = ("densities_large", "density_grads_large", "stein_smom")
 
 def search_rows(searches: dict) -> dict:
     """The fused search once more on the inputs of its last launch on each
-    D <= 64 path, held as in the kernel phase (the paper's paths: the KL
-    at every visited eta against float64); fails on a miss.  Returns
+    D <= 64 path, held as in the kernel phase (``measure_tr_search``);
+    fails on a miss.  Returns
     per path its device ms, trips and equality with the host loop."""
     out = {}
     for path in SEARCH_PATHS:
-        row = measure_tr_search(searches[path],
-                                against_float64=path in PAPER_PATHS)
+        row = measure_tr_search(searches[path])
         emit({"phase": "kernel_on_main_path_inputs", "path": path,
               "name": "tr_search", **row})
         if not row["ok"]:
@@ -2065,16 +2307,25 @@ def sepyfux_phase(dev, captured):
 
 def large_d_input_rows(captured, path: str = "stm300") -> dict:
     """B5 at each of its call sizes, B6 and B7 once more on the inputs of
-    their last launch in a D = 300 run, against their plain versions at
-    the kernel phase's bars; fails on a miss.  On stm300 B5's sizes are
-    the step's four (the pack and the weight update over the total window,
-    the ESS pass over the reuse window, the background over U ring rows at
-    both) and B9's two through B5 (the add heuristic's reservoir
-    candidates, the ELBO estimate's draws); on SEPYFUX one (the pack and
-    the weight update over the step's 100 draws), without B7.  Returns per
-    kernel, per "path [entry] K=.. N=..", its numbers."""
+    their last launch in a D = 300 run (or wine's, D = 177), against their
+    plain versions at the kernel phase's bars; fails on a miss.  On stm300
+    B5's sizes are the step's four (the pack and the weight update over the
+    total window, the ESS pass over the reuse window, the background over U
+    ring rows at both) and B9's two through B5 (the add heuristic's
+    reservoir candidates, the ELBO estimate's draws); on wine the same
+    entries at its sizes (its window grows with its components); on
+    SEPYFUX one (the pack and the weight update over the step's 100
+    draws), without B7.  Returns per kernel, per "path [entry] K=.. N=..",
+    its numbers."""
     keys = sorted(k for k in captured if isinstance(k, tuple))
-    if path == "stm300":
+    if path == "wine":
+        if {k[0] for k in keys} != {"densities_large",
+                                    "mixture_logpdf_large"} \
+                or "density_grads_large" not in captured \
+                or "stein_smom" not in captured:
+            raise AssertionError(f"expected B5 (both entries), B6 and B7 "
+                                 f"on wine, got {sorted(captured, key=str)}")
+    elif path == "stm300":
         step_sizes = {(k[0], k[2]) for k in keys} & {
             ("densities_large", N_REUSE_LARGE), ("densities_large", N_LARGE),
             ("mixture_logpdf_large", N_REUSE_LARGE),
@@ -2093,7 +2344,7 @@ def large_d_input_rows(captured, path: str = "stm300") -> dict:
                 for key in keys]
     measures += [("density_grads_large", path, lambda: measure_large_grads(
         captured["density_grads_large"]))]
-    if path == "stm300":
+    if path in ("stm300", "wine"):
         measures += [("stein_smom", path,
                       lambda: measure_stein(captured["stein_smom"]))]
     out: dict = {}
@@ -2107,6 +2358,131 @@ def large_d_input_rows(captured, path: str = "stm300") -> dict:
         out.setdefault(name, {})[label] = {f: row[f] for f in PATH_FIELDS
                                            if f in row}
     return out
+
+
+def wine_phase(dev, captured) -> dict:
+    """wine through the runner, as a user drives it:
+    ``GmmviRunner.build_from_config(get_default_config("SAMTRON",
+    "wine"))`` with nothing cut (D = 177, 4 components in 24 slots, 100
+    fresh and 200 reused samples each, U = 96 background rows) and
+    ``iterate_and_log(n)`` for n = 0..200 (an evaluation every 25), the
+    launch counters set to 0 just before and read just after; the inputs
+    of the last B5 (per entry and size), B6 and B7 launches go to
+    ``captured``.  The BNN target keeps a host-side minibatch cursor, so
+    every step takes the host-target path: the valid rows in a
+    power-of-two bucket.  Holds: every metric and the state finite; each
+    step's target call given exactly min(next power of two of its valid
+    rows, Kmax n_des) rows; the fevals the sum of the valid rows; B5, B6
+    and B7 launched and none of B1-B4 or B8; the ELBO at iteration 200
+    above the first evaluation's (a sound run, ``wine_sound_runs``) and at
+    or above ``ELBO_FLOOR["wine"]``, and its ``bi_test_loss`` at or below
+    ``WINE_TEST_LOSS_CEILING``."""
+    import torch
+
+    from gmmvi_tpu_torch.configs import get_default_config
+    from gmmvi_tpu_torch.ops import cuda
+
+    runner = build_runner(dev, get_default_config("SAMTRON", "wine"))
+    g, sel = runner.gmmvi, runner.gmmvi.selector_cfg
+    target = runner.target_distribution
+    shape = (g.model.num_dimensions, g.model.max_components,
+             sel.desired_samples_per_component,
+             sel.reused_samples_per_component, sel.max_background_dists,
+             runner.log_metrics_interval)
+    if shape != WINE_SHAPE or target.safe_for_jit:
+        raise AssertionError(f"wine built as {shape}, safe_for_jit "
+                             f"{target.safe_for_jit}")
+    # per step: the valid rows and the row counts of the target's calls
+    target_rows, steps = [], []
+    target_call = target.log_density_and_grad
+    valid_rows = g._eval_valid_rows
+
+    def recording_target(x):
+        target_rows.append(x.shape[0])
+        return target_call(x)
+
+    def recording_valid_rows(samples, valid):
+        first = len(target_rows)
+        out = valid_rows(samples, valid)
+        steps.append((int(valid.sum()), samples.shape[0],
+                      target_rows[first:]))
+        return out
+
+    target.log_density_and_grad = recording_target
+    g._eval_valid_rows = recording_valid_rows
+    restore = capture_large_d_inputs(captured)
+    evals, walls = [], []
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for n in range(WINE_ITERS):
+        out = runner.iterate_and_log(n)
+        walls.append(out["walltime"])
+        if "-elbo" in out:
+            evals.append(dict(
+                iteration=n, elbo=-out["-elbo"],
+                target_density=out["target_density"],
+                num_components=out["num_components"],
+                fevals=out["num_samples"],
+                **{k: v for k, v in out.items() if k.startswith("bi_")},
+                finite=all(math.isfinite(v) for v in out.values()
+                           if isinstance(v, (int, float)))))
+            emit({"phase": "paper_eval", "experiment": "wine", **evals[-1]})
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t_start
+    launches = dict(cuda.LAUNCHES)
+    for undo in restore:
+        undo()
+    del target.log_density_and_grad, g._eval_valid_rows
+    st = g.state
+    fevals = int(st.db.num_samples_written)
+    bucket_ok = all(rows == [min(1 << max(v - 1, 0).bit_length(), b)]
+                    for v, b, rows in steps)
+    out = dict(
+        phase="main_path", path="wine", codename="SAMTRON",
+        experiment="wine", entry="GmmviRunner.iterate_and_log",
+        iterations=WINE_ITERS, first_step_s=walls[0],
+        median_step_ms=statistics.median(walls[1:]) * 1e3,
+        mean_step_ms=sum(walls[1:]) / (WINE_ITERS - 1) * 1e3,
+        wall_s=total_s, evaluations=len(evals),
+        elbo_start=evals[0]["elbo"], elbo_end=evals[-1]["elbo"],
+        fevals=fevals, valid_rows=sum(v for v, _, _ in steps),
+        target_rows_in_steps=sum(sum(r) for _, _, r in steps),
+        host_target_steps=len(steps), buckets_equal_next_pow2=bucket_ok,
+        num_active=int(st.model.num_active), kmax=st.model.max_components,
+        launches=launches,
+        launches_per_step={k: v / WINE_ITERS for k, v in launches.items()},
+        last_eval=evals[-1], elbo_floor=ELBO_FLOOR["wine"],
+        test_loss_ceiling=WINE_TEST_LOSS_CEILING,
+        peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+    emit(out)
+    if not all(e["finite"] for e in evals) or not model_finite(st):
+        raise AssertionError("a non-finite metric or state on wine")
+    if len(steps) != WINE_ITERS or not bucket_ok:
+        raise AssertionError(f"wine's target calls were not the host-target "
+                             f"path's buckets: {steps[:5]} ...")
+    if fevals != out["valid_rows"]:
+        raise AssertionError(f"wine: fevals {fevals} != the valid rows "
+                             f"{out['valid_rows']}")
+    for name in LARGE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on wine")
+    for name in ("density_pack", "densities", "tr_kl", "tr_search",
+                 "background_logpdf", "more_grams"):
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched on wine: {launches}")
+    last = evals[-1]
+    if not (last["iteration"] == WINE_ITERS - 1
+            and last["elbo"] > evals[0]["elbo"]
+            and last["elbo"] >= ELBO_FLOOR["wine"]
+            and last["bi_test_loss"] <= WINE_TEST_LOSS_CEILING):
+        raise AssertionError(f"wine's last evaluation {last} is not above "
+                             f"the first ({evals[0]['elbo']}) or misses the "
+                             f"floor {ELBO_FLOOR['wine']} or the test-loss "
+                             f"ceiling {WINE_TEST_LOSS_CEILING}")
+    return launches
 
 
 def runner_config(max_components=None) -> dict:
@@ -2355,15 +2731,18 @@ def paper_phase(dev, experiment, searches, densities, captured):
     it: ``GmmviRunner.build_from_config(get_default_config("SAMTRON",
     experiment))`` and ``iterate_and_log(n)`` for the iterations of
     ``PAPER_PATHS`` (planar_robot_4: 130 if the median of steps 1-10 passes
-    150 ms), the launch counters set to 0 just before and read just after.
+    150 ms; talos: n = 0..250 with an evaluation every 250 if the median
+    of steps 1-50 passes 150 ms), the launch counters set to 0 just before
+    and read just after.
     The last fused search's inputs go to ``searches[experiment]``, the last
     B1 and B2 launches' at each size to ``densities``, the last B4 and B9
     launches' at each size to ``captured``.  Holds: every metric finite;
     B1, B2, B3's search, B4 and B9 launched and the per-trip KL not; the
     logistic regressions' last ELBO above the first and above
-    ``ELBO_FLOOR``; the minibatch run's full-batch ELBO finite and its
-    fevals rising; planar_robot_4 with a mode at each of its four goals at
-    the last evaluation."""
+    ``ELBO_FLOOR`` (talos too); the minibatch run's full-batch ELBO finite
+    and its fevals rising; planar_robot_4 with a mode at each of its four
+    goals at the last evaluation; talos's B1 and B2 through their
+    run-time instance (33 <= D <= 128)."""
     import torch
 
     from gmmvi_tpu_torch.configs import get_default_config
@@ -2415,6 +2794,14 @@ def paper_phase(dev, experiment, searches, densities, captured):
         if experiment == "planar_robot_4" and n == 10 and statistics.median(
                 walls[1:11]) * 1e3 > PLANAR_STEP_MS_CAP:
             iters = PLANAR_ITERS_CUT
+        if experiment == "talos" and n == 50 and statistics.median(
+                walls[1:51]) * 1e3 > TALOS_STEP_MS_CAP:
+            iters = TALOS_ITERS_CUT
+            runner.log_metrics_interval = TALOS_INTERVAL_CUT
+            emit({"phase": "cut", "experiment": experiment,
+                  "median_step_ms_1_50": statistics.median(walls[1:51]) * 1e3,
+                  "iterations": iters,
+                  "log_metrics_interval": TALOS_INTERVAL_CUT})
         n += 1
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t_start
@@ -2433,7 +2820,8 @@ def paper_phase(dev, experiment, searches, densities, captured):
     out = dict(
         phase="main_path", path=experiment, codename="SAMTRON",
         experiment=experiment, entry="GmmviRunner.iterate_and_log",
-        iterations=iters, first_step_s=walls[0],
+        iterations=iters, cut=iters != PAPER_PATHS[experiment][0],
+        first_step_s=walls[0],
         median_step_ms=statistics.median(walls[1:]) * 1e3,
         mean_step_ms=sum(walls[1:]) / (iters - 1) * 1e3, wall_s=total_s,
         evaluations=len(evals), elbo_start=evals[0]["elbo"],
@@ -2454,6 +2842,17 @@ def paper_phase(dev, experiment, searches, densities, captured):
                                  f"{experiment}")
     if launches["tr_kl"] != 0:
         raise AssertionError(f"the per-trip KL launched on {experiment}")
+    if experiment == "talos":
+        src = (Path(__file__).resolve().parent / "gmmvi_tpu_torch" / "csrc"
+               / "density.cu").read_text()
+        if f"MAX_UNROLLED_D = {MAX_UNROLLED_D};" not in src:
+            raise AssertionError("density.cu's MAX_UNROLLED_D is not "
+                                 f"{MAX_UNROLLED_D}")
+        dims = {args[0].shape[1] for key, args in densities.items()
+                if key[1] == experiment}
+        if not dims or not all(MAX_UNROLLED_D < d <= 128 for d in dims):
+            raise AssertionError(f"talos's B1/B2 launches at D = {dims}, "
+                                 "not all through the run-time instance")
     if not all(r["counts_intact"] for r in repads):
         raise AssertionError(f"a repad broke the counts: {repads}")
     if experiment in ELBO_FLOOR:
@@ -2613,6 +3012,12 @@ def diagonal_phase(dev) -> dict:
 
 
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # the wine BNN seeds its batch order from hash(("bnn", seed)), as
+        # the JAX package does; with a fixed hash seed its run repeats
+        # from call to call
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
     import torch
 
     if not torch.cuda.is_available():
@@ -2640,6 +3045,7 @@ def main() -> int:
     captured_large: dict = {}
     captured_sepyfux: dict = {}
     captured_runner: dict = {}
+    captured_wine: dict = {}
     searches: dict = {}
     densities: dict = {}
     samtron, samtron_fevals = main_path_phase(dev, "SAMTRON", flagship,
@@ -2665,6 +3071,7 @@ def main() -> int:
         by_path[experiment] = paper_phase(dev, experiment, searches,
                                           densities,
                                           captured_paper[experiment])
+    by_path["wine"] = wine_phase(dev, captured_wine)
     on_paths = {**density_path_rows(densities),
                 "tr_search": search_rows(searches),
                 "background_logpdf": {
@@ -2676,7 +3083,8 @@ def main() -> int:
             on_paths[name].update(labels)
     main_path_input_rows(captured, searches["ZAMTRUX"])
     for path, large in (("stm300", captured_large),
-                        ("SEPYFUX", captured_sepyfux)):
+                        ("SEPYFUX", captured_sepyfux),
+                        ("wine", captured_wine)):
         for name, labels in large_d_input_rows(large, path).items():
             on_paths.setdefault(name, {}).update(labels)
     runner_input_rows(captured_runner)

@@ -4,8 +4,8 @@
 
 The module defaults each codename letter selects, and the ``stm20``,
 ``stm300``, ``gmm20``, ``gmm100``, ``breast_cancer``, ``breast_cancer_mb``,
-``german_credit``, ``german_credit_mb`` and ``planar_robot_4`` experiment
-defaults, are kept here as Python dicts: the port reads no YAML at run
+``german_credit``, ``german_credit_mb``, ``planar_robot_4``, ``talos``
+and ``wine`` experiment defaults, are kept here as Python dicts: the port reads no YAML at run
 time.  They equal the YAML
 files of the JAX package
 (``gmmvi_tpu/configs/module_configs`` and ``experiment_configs``); a CPU test
@@ -126,6 +126,33 @@ EXPERIMENT_DEFAULTS = {
         "gmmvi_runner_config": {"log_metrics_interval": 10},
         "use_sample_database": True,
         "max_database_size": 10000000,
+        "temperature": 1.0,
+    },
+    "talos": {
+        "start_seed": 10000,
+        "environment_name": "Talos",
+        "environment_config": {"context": [0.1, 0.5, 1.0]},
+        "model_initialization": {"use_diagonal_covs": False,
+                                 "num_initial_components": 1,
+                                 "prior_mean": 0.0, "prior_scale": 1.0,
+                                 "initial_cov": 1.0},
+        "gmmvi_runner_config": {"log_metrics_interval": 500},
+        "use_sample_database": True,
+        "max_database_size": 500000,
+        "temperature": 1.0,
+    },
+    "wine": {
+        "start_seed": 10000,
+        "environment_name": "WINE",
+        "environment_config": {"likelihood_scaling": 1.0, "prior_std": 1.0,
+                               "batch_size": 128},
+        "model_initialization": {"use_diagonal_covs": False,
+                                 "num_initial_components": 4,
+                                 "prior_mean": 0.0, "prior_scale": 1.0,
+                                 "initial_cov": 1.0},
+        "gmmvi_runner_config": {"log_metrics_interval": 25},
+        "use_sample_database": True,
+        "max_database_size": 500000,
         "temperature": 1.0,
     },
     "gmm20": {**_GMM_DEFAULTS, "environment_config": {"num_dimensions": 20}},

@@ -22,9 +22,11 @@ def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
                      device="cuda") -> LNPDF:
     """Environment-name registry: the Student-T mixture ("STM"), the GMM
     targets ("GMM*", "DIAGGMM*"), the logistic-regression posteriors
-    ("breastCancer", "GermanCredit" and their "_mb" minibatch variants) and
-    the planar robots ("PlanarRobot1", "PlanarRobot4").  Random targets are
-    seeded with the run seed unless ``environment_config`` names its own."""
+    ("breastCancer", "GermanCredit" and their "_mb" minibatch variants),
+    the planar robots ("PlanarRobot1", "PlanarRobot4"), the wine BNN
+    ("WINE*", its data split and batch order from the run seed) and the
+    Talos IK posterior ("Talos*").  Random targets are seeded with the run
+    seed unless ``environment_config`` names its own."""
     environment_config = dict(environment_config or {})
     target_seed = environment_config.pop("seed", seed)
     if experiment in ("breastCancer", "GermanCredit", "breastCancer_mb",
@@ -54,10 +56,18 @@ def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
         from gmmvi_tpu_torch.experiments.targets.gmm import make_target
         return make_target(seed=target_seed, device=device,
                            **environment_config)
+    if experiment.startswith("WINE"):
+        from gmmvi_tpu_torch.experiments.targets.bnn import make_WINE_target
+        return make_WINE_target(dataset_seed=seed, device=device,
+                                **environment_config)
+    if experiment.startswith("Talos"):
+        from gmmvi_tpu_torch.experiments.targets.talos_ik import \
+            make_talos_target
+        return make_talos_target(device=device, **environment_config)
     raise NotImplementedError(
         f"target '{experiment}' is not ported yet (the port has STM, GMM, "
-        "DIAGGMM, breastCancer, GermanCredit, their _mb variants and "
-        "PlanarRobot1/4)")
+        "DIAGGMM, breastCancer, GermanCredit, their _mb variants, "
+        "PlanarRobot1/4, WINE and Talos; MNIST waits for its data)")
 
 
 def construct_initial_mixture(

@@ -1,9 +1,9 @@
-"""Dataset loading for the logistic-regression targets.
+"""Dataset loading for the logistic-regression, BNN and Talos targets.
 
 (JAX counterpart: gmmvi_tpu/experiments/targets/datasets.py, the
-breast-cancer and german-credit loaders)
+breast-cancer, german-credit and wine loaders)
 
-The UCI data files ship with the JAX package, under
+The UCI data files, the wine splits and the Talos URDF ship with the JAX package, under
 ``gmmvi_tpu/experiments/targets/datasets/``; the port reads them in place
 (a path built from this file's location, not an import of that package).
 A directory named by the ``GMMVI_DATASETS`` environment variable is
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -51,3 +51,12 @@ def load_german_credit() -> Tuple[np.ndarray, np.ndarray]:
     ``german.data-numeric``, whose last column is the label in {1, 2}."""
     data = np.loadtxt(str(find("german.data-numeric")))
     return data[:, :-1], data[:, -1] - 1
+
+
+def load_wine_split(dataset_seed: int) -> Dict[str, np.ndarray]:
+    """The wine-quality regression split ``wine/wine_seed_{seed % 10}.npz``:
+    ``features_{train,vali,test}`` (standardized, 11 columns) and
+    ``labels_{train,vali,test}``, as stored."""
+    d = np.load(str(find(os.path.join("wine",
+                                      f"wine_seed_{dataset_seed % 10}.npz"))))
+    return {k: np.asarray(d[k]) for k in d.files}

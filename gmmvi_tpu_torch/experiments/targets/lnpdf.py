@@ -2,10 +2,17 @@
 
 (JAX counterpart: gmmvi_tpu/experiments/targets/lnpdf.py)
 
-The port runs eagerly, so a target is simply called between the propose and
-update phases of a step; there is no compiled/host split to choose between.
-Targets with analytic gradients override :meth:`LNPDF.log_density_and_grad`;
-the default differentiates :meth:`LNPDF.log_density` with autograd.
+A target is called between the propose and update phases of a step.  Its
+``safe_for_jit`` flag (the JAX package's name, the reference's
+``safe_for_tf_graph``) decides which rows it sees: a target that is safe
+(True, the default) is evaluated on every padded row of the proposal, as in
+the JAX package's compiled step; one that is not (a target with host state,
+such as a minibatch cursor, or a Python callable outside torch) is given only
+the valid rows, compacted into a power-of-two bucket padded with row 0
+(``GMMVI.train_iter``), so it sees the rows, in the order, that the JAX
+package gives it.  A target with an analytic gradient overrides
+:meth:`LNPDF.log_density_and_grad`; the default differentiates
+:meth:`LNPDF.log_density` with autograd.
 """
 from __future__ import annotations
 
@@ -17,6 +24,11 @@ import torch
 
 class LNPDF:
     """Unnormalized target log-density interface."""
+
+    _safe_for_jit = True
+
+    def __init__(self, safe_for_jit: bool = True):
+        self._safe_for_jit = safe_for_jit
 
     def log_density(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -39,6 +51,10 @@ class LNPDF:
         """Task-specific metrics for the runner's evaluations; none by
         default."""
         return {}
+
+    @property
+    def safe_for_jit(self) -> bool:
+        return self._safe_for_jit
 
 
 def detected_modes_metrics(target, model_state, x_range, grid) -> dict:

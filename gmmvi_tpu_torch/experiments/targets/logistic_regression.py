@@ -8,7 +8,10 @@ for z = -X theta, ``log sigma(z)`` where the label is 1 and ``log sigma(z)
 - z`` where it is 0.  The full-batch target's gradient is analytic, two
 large products (``X^T (sigma(z) - y)`` and the prior's term).
 
-The minibatch variant reshuffles the training data on every call to
+The minibatch variant is not ``safe_for_jit`` (its shuffled order is
+host state), so a step gives it the proposal's valid rows in a
+power-of-two bucket, as the JAX package does.  It reshuffles the training
+data on every call to
 :meth:`LogisticRegression_minibatch.log_density` with a host-side
 ``np.random.RandomState(seed)``, so both packages see the same batches
 call for call; with ``use_own_batch_per_sample`` parameter sample i takes
@@ -108,6 +111,9 @@ class LogisticRegression_minibatch(LogisticRegression):
                  use_own_batch_per_sample: bool, seed: int = 0,
                  device="cuda"):
         super().__init__(dataset_id, device=device)
+        # host state (the shuffled order): the host-target path, as in the
+        # JAX package; no analytic gradient (autograd, below)
+        self._safe_for_jit = False
         data, labels = self.data, self.labels
         if size_test_set > 0:
             self.data_test = data[-size_test_set:]

@@ -13,6 +13,11 @@ trust region's search through kernel B3, or a direct or iBLR step) and
 weights (kernel B2), then adapt the number of components (VIPS) or keep it
 fixed.
 
+A target that is not ``safe_for_jit`` (host state, a Python callable) is
+evaluated on the valid rows only, in a power-of-two bucket, as the JAX
+package's host-target path evaluates it (:meth:`GMMVI._eval_valid_rows`);
+that reads the proposal's mask on the host once a step.
+
 Every random draw of a step comes from the instance's ``torch.Generator``
 unless the caller passes a :class:`StepDraws` with its own.  The iteration
 count is a host integer (``TrainState.num_updates``), so the adaptation
@@ -223,9 +228,38 @@ class GMMVI:
             model, meta, elr, wstep.stepsize, self.temperature)
         return model, meta, wstep
 
+    def _eval_valid_rows(self, samples: torch.Tensor, valid: torch.Tensor):
+        """The host-target path (a target with ``safe_for_jit`` False), as
+        the JAX package's ``train_iter`` takes it: the valid rows, read on
+        the host, compacted into a bucket of the next power of two rows (at
+        most all of them) padded with row 0, evaluated in one call, and
+        scattered back with zeros elsewhere.  Where the padding repeats
+        row 0, the last of its copies is kept, as JAX's scatter keeps it on
+        the CPU.  A stateful target (a minibatch cursor) so sees the rows,
+        in the order, that the JAX package gives it."""
+        b, d = samples.shape
+        idx = np.flatnonzero(valid.cpu().numpy())
+        bucket = min(1 << max(len(idx) - 1, 0).bit_length(), b)
+        padded = np.zeros(bucket, np.int64)
+        padded[:len(idx)] = idx
+        dev = samples.device
+        lnp, grads = self._eval_target(
+            samples[torch.as_tensor(padded, device=dev)])
+        rows, first_from_end = np.unique(padded[::-1], return_index=True)
+        rows = torch.as_tensor(rows, device=dev)
+        last = torch.as_tensor(bucket - 1 - first_from_end, device=dev)
+        lnpdfs = torch.zeros(b, dtype=samples.dtype, device=dev)
+        lnpdfs[rows] = lnp[last].to(samples.dtype)
+        out = torch.zeros_like(samples)
+        out[rows] = grads[last].to(samples.dtype)
+        return lnpdfs, out
+
     def _full_step(self, state: TrainState, draws: StepDraws) -> TrainState:
         prop = self._propose_phase(state, draws)
-        lnpdfs, grads = self._eval_target(prop.samples)
+        if self.target_distribution.safe_for_jit:
+            lnpdfs, grads = self._eval_target(prop.samples)
+        else:
+            lnpdfs, grads = self._eval_valid_rows(prop.samples, prop.valid)
         return self._update_phase(state, prop, lnpdfs, grads, draws)
 
     # ------------------------------------------------------------------

@@ -23,8 +23,10 @@ a signed log-sum-exp over the samples, one component at a time
 
 MORE fits every component's quadratic surrogate of the log ratios by
 importance-weighted ridge regression: the weighted normal equations of all
-components come from kernel B8 (``ops/more.py``) in one pass, then one
-batched Cholesky solve and unwhitening (``ops/quadratic.py``).
+components come from kernel B8 (``ops/more.py``) in one pass for D <= 45,
+its envelope, and from its plain version, one component at a time, above
+(as the JAX package fits them with ``lax.map`` there); then one batched
+Cholesky solve and unwhitening (``ops/quadratic.py``).
 
 A diagonal model keeps the diagonals only, in plain torch as in the JAX
 package (B7 and B8 are not launched): the Stein Hessian is the elementwise
@@ -42,6 +44,7 @@ from gmmvi_tpu_torch.models.gmm import (DensityPack, GmmState, density_pack,
                                         log_densities_also_individual)
 from gmmvi_tpu_torch.models.gmm import diag_chunks
 from gmmvi_tpu_torch.ops import stein as stein_ops
+from gmmvi_tpu_torch.ops.more import MAX_D as MORE_MAX_D
 from gmmvi_tpu_torch.ops.more import more_grams, more_grams_plain
 from gmmvi_tpu_torch.ops.quadratic import solve_quadratic_normal_eqs
 from gmmvi_tpu_torch.ops.stable import (NEG_INF, masked_logsumexp,
@@ -252,8 +255,11 @@ def more_estimate(
             diagonal=True)
         hneg = torch.diagonal(quad, dim1=-2, dim2=-1)
         return NgEstimate(hneg, hneg * model.means - lin)
-    gram, rhs = more_grams(model.inv_chols, model.means, w, log_ratios,
-                           samples)
+    # kernel B8 within its envelope (D <= 45); above it the plain version,
+    # one component at a time, as the JAX package's lax.map fits it
+    grams = (more_grams if model.num_dimensions <= MORE_MAX_D
+             else more_grams_plain)
+    gram, rhs = grams(model.inv_chols, model.means, w, log_ratios, samples)
     quad, lin, _ = solve_quadratic_normal_eqs(gram, rhs, l2_regularizers,
                                               model.means, model.inv_chols)
     gneg = torch.einsum("kij,kj->ki", quad, model.means) - lin

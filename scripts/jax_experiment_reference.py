@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """The JAX package's runner on one bundled experiment, on the CPU: the
 reference values the PyTorch port's runs of the same experiment are held
-to (``chip_smoke.py`` takes its bars for breast_cancer, german_credit and
-planar_robot_4 from these runs).
+to (``chip_smoke.py`` takes its bars for breast_cancer, german_credit,
+planar_robot_4, talos and wine from these runs).
 
 ``python3 scripts/jax_experiment_reference.py --experiment breast_cancer
 --iters 1000`` builds ``get_default_config("SAMTRON", experiment)`` (with
 ``--num-initial-components`` a smaller initial mixture, for a run that
-fits a small host) and drives ``GmmviRunner.iterate_and_log`` for
+fits a small host, and with ``--seed`` another ``start_seed``: the initial
+mixture, the run's random keys and, for wine, the data split) and drives ``GmmviRunner.iterate_and_log`` for
 ``--iters`` iterations, printing one JSON line per evaluation (iteration,
 ELBO, fevals, components, the target's metrics) and a last line with the
 run's wall time.
@@ -34,6 +35,7 @@ def main() -> int:
     ap.add_argument("--codename", default="SAMTRON")
     ap.add_argument("--iters", type=int, default=1000)
     ap.add_argument("--num-initial-components", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=None)
     args = ap.parse_args()
 
     import gmmvi_tpu.configs as configs
@@ -43,6 +45,8 @@ def main() -> int:
     if args.num_initial_components is not None:
         cfg = configs.update_config(cfg, {"model_initialization": {
             "num_initial_components": args.num_initial_components}})
+    if args.seed is not None:
+        cfg["start_seed"] = args.seed
     runner = GmmviRunner.build_from_config(cfg)
     if hasattr(runner.target_distribution, "make_plots"):
         runner.target_distribution.make_plots = False
@@ -55,10 +59,11 @@ def main() -> int:
                 "fevals": int(out["num_samples"]),
                 "components": int(out["num_components"]),
                 **{k: v for k, v in out.items()
-                   if k.startswith(("num_detected_modes", "elbo_fb"))}}),
+                   if k.startswith(("num_detected_modes", "elbo_fb", "bi_"))}}),
                 flush=True)
     print(json.dumps({"experiment": args.experiment,
                       "codename": args.codename, "iterations": args.iters,
+                      "seed": int(cfg["start_seed"]),
                       "kmax": int(runner.gmmvi.state.model.max_components),
                       "wall_s": time.time() - t0}), flush=True)
     return 0

@@ -6,8 +6,10 @@ flagship: the 20-D Student-T mixture, 45 components padded to 48, 200
 samples per component; or ``ZAMTRUX``, VIPS with sample reuse at the same
 widths; with ``--experiment stm300`` or ``gmm20``, the codename on that
 experiment from ``get_default_config(codename, experiment)``: the 300-D
-Student-T mixture, or the runner path's 20-D GMM, which starts from one
-component, so give it a longer ``--warmup``), runs warm-up steps, then
+Student-T mixture, the runner path's 20-D GMM, which starts from one
+component, so give it a longer ``--warmup``, the 34-D Talos IK posterior
+or the 177-D wine BNN, whose steps take the host-target path), runs
+warm-up steps, then
 traces ``--steps`` steps with ``torch.profiler``.  Writes the profiler's
 table (sorted by device time) to
 ``<out-dir>/profile_torch_step_<codename>[_<experiment>].txt`` and prints
@@ -19,7 +21,7 @@ device ms per step for the port's kernels and for the largest other groups.
 
 Run from the repository root on a machine with the card:
 ``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]
-[--experiment stm300 | gmm20 --warmup 600]``.
+[--experiment stm300 | talos | wine | gmm20 --warmup 600]``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ def main() -> int:
     ap.add_argument("--codename", default="SAMTRON",
                     choices=("SAMTRON", "ZAMTRUX"))
     ap.add_argument("--experiment", default="flagship",
-                    choices=("flagship", "stm300", "gmm20"))
+                    choices=("flagship", "stm300", "gmm20", "talos",
+                             "wine"))
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out-dir", default=os.path.join("build", "profile"),

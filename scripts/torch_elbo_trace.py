@@ -66,22 +66,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from gmmvi_tpu_torch.ops import density_large, stein
+    from torch_experiment_reference import use_plain_versions
 
     if args.iters:
         trace("kernels", args.iters)
     if args.plain_iters:
         plain = set(args.plain_kernels.split(","))
-        if "B5" in plain:
-            density_large.densities_large = \
-                density_large.densities_large_plain
-            density_large.mixture_logpdf_large = \
-                density_large.mixture_logpdf_large_plain
-        if "B6" in plain:
-            density_large.density_grads_large = \
-                density_large.density_grads_large_plain
-        if "B7" in plain:
-            stein.stein_smom = stein.stein_smom_plain
+        use_plain_versions(plain)
         trace("plain " + "+".join(sorted(plain)), args.plain_iters)
     from chip_smoke import nvidia_smi
 

@@ -128,6 +128,16 @@ def test_density_at_the_paper_experiments_shapes(dev, k, d, n, n_live):
                                                  seed=k + d)])
 
 
+@pytest.mark.parametrize("n_live", [1, 12, 24])
+def test_density_at_talos_shapes(dev, n_live):
+    """B1 and B2 at talos's shapes: D = 34 (the run-time instance, 33 <= D
+    <= 128), 24 slots of which ``n_live`` are live, the total window's
+    N = 7,200: within the bar, -inf slots -inf, equal bits on two
+    calls."""
+    _check_density([t.to(dev) for t in _mixture(24, 34, 7200, 24 - n_live,
+                                                seed=34 + n_live)])
+
+
 @pytest.mark.parametrize("k,d", [(48, 20), (5, 1), (9, 6), (3, 64)])
 def test_tr_kl_kernel_matches_plain(dev, k, d):
     """B3 against its plain version: F32_MAX in the same places (eta <= 0,
@@ -838,6 +848,55 @@ def test_density_grads_tf32x3_dense_and_sparse(dev, d, sparse):
     live = float((resp > 0).double().mean())
     assert (live < 0.5) if sparse else (live > 0.5)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("n_live,n", [(4, 1200), (10, 7200), (24, 7200)])
+def test_large_kernels_at_wine_shapes(dev, n_live, n):
+    """B5, B6 and B7 at wine's shapes: D = 177 (its last 32-column slab
+    part filled), 24 slots of which ``n_live`` are live, N the window
+    (1,200 at the first step, 7,200 once the reuse window fills): B5 at
+    rtol 2e-4 / atol 2e-3 (comp and model, and its background mode over
+    the live rows), B6 at rtol / atol 2e-3 with equal bits on two calls,
+    B7 within 1e-5 of each component's largest entry."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.ops import density_large as dl
+    from gmmvi_tpu_torch.ops import stein
+
+    k, d = 24, 177
+    args = [t.to(dev) for t in _large_mixture(k, d, n, k - n_live,
+                                              seed=d + n_live)]
+    before = dict(cuda.LAUNCHES)
+    comp, model = dl.densities_large(*args)
+    comp_p, model_p = dl.densities_large_plain(*args)
+    gargs = [*args[:3], comp_p, model_p, args[4]]
+    grads = dl.density_grads_large(*gargs)
+    again = dl.density_grads_large(*gargs)
+    grads_p = dl.density_grads_large_plain(*gargs)
+    mix = dl.mixture_logpdf_large(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["densities_large"] == before["densities_large"] + 2
+    assert cuda.LAUNCHES["density_grads_large"] == \
+        before["density_grads_large"] + 2
+    torch.testing.assert_close(comp, comp_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(model, model_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(mix, model_p, rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(grads, grads_p, rtol=2e-3, atol=2e-3)
+    assert torch.equal(grads, again)
+    w = torch.where(torch.isfinite(args[2])[:, None],
+                    torch.softmax(comp_p - model_p[None, :], dim=1), 0.0)
+    g = torch.Generator(device=dev).manual_seed(n_live)
+    sargs = [t.contiguous() for t in (
+        w, torch.randn(n, d, generator=g, device=dev) * 10.0,
+        args[4] - args[0].mean(0))]
+    got = stein.stein_smom(*sargs)
+    want = stein.stein_smom_plain(*sargs)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["stein_smom"] == before["stein_smom"] + 1
+    scale = want.abs().reshape(k, -1).amax(1)
+    err = (got - want).abs().reshape(k, -1).amax(1)
+    live = scale > 0
+    assert (err[live] <= 1e-5 * scale[live]).all()
+    assert (err[~live] == 0).all()
 
 
 def test_large_kernels_at_sepyfux_shapes(dev):

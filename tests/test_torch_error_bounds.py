@@ -1,8 +1,9 @@
-"""The float32 error bounds ``chip_smoke.py`` holds the paper paths' B1, B2
-and B3 rows to, on the CPU: the plain float32 versions stay within the
-bar plus the bound against float64 on narrow components and samples far
-out in their tails, where the bar alone is missed, and a result moved by
-more than its bound is refused."""
+"""The float32 error bounds ``chip_smoke.py`` holds a B1, B2, B3, B5 or B6
+row to where the kernel misses its fixed bar, on the CPU: the plain
+float32 versions stay within the bar plus the bound against float64 on
+narrow components and samples far out in their tails, where the bar alone
+is missed, and a result moved by more than its bound is refused; and the
+rule that allows that form only where float32 itself misses the bar."""
 import math
 import sys
 from pathlib import Path
@@ -77,6 +78,88 @@ def test_density_bound_holds_for_the_plain_version(name):
         assert not cs.density_vs_float64(args, bad, bad, want)["ok"], i
 
 
+@pytest.mark.parametrize("name", ["densities_large", "mixture_logpdf_large"])
+def test_large_density_bound_holds_for_the_plain_version(name):
+    """B5's bound (wine's rows, where the kernel misses its fixed bar): at
+    D = 140 on narrow components with samples far out in their tails, the
+    plain float32 version within B5's bar (atol 2e-3 + rtol 2e-4) plus s
+    of float64 at every entry, s with the 3xTF32 products' roundings
+    (``product_u=13``); an entry moved by twice its bar + s is
+    refused."""
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    cs = _chip_smoke()
+    args = _tail_mixture(d=140, n=800, seed=1)
+    want = getattr(dl, name + "_plain")(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    labels = ("comp", "model") if len(want) == 2 else ("model",)
+    kw = dict(labels=labels, atol=2e-3, rtol=2e-4, product_u=13)
+    out = cs.density_vs_float64(args, want, want, want, **kw)
+    assert out["ok"] and out["places"] and out["equal_bits"], out
+    assert set(out["against_float64"]) == set(labels)
+    refs, bounds = cs.density_float64(args, False, product_u=13)
+    named = dict(zip(("comp", "model"), zip(refs, bounds)))
+    for i, label in enumerate(labels):
+        bad = [t.clone() for t in want]
+        ref, bound = named[label]
+        j = int(torch.isfinite(ref).view(-1).nonzero()[0])
+        r, b = float(ref.view(-1)[j]), float(bound.view(-1)[j])
+        bad[i].view(-1)[j] = r + 2 * (2e-3 + 2e-4 * abs(r) + b)
+        assert not cs.density_vs_float64(args, bad, bad, want, **kw)["ok"]
+
+
+def test_large_grads_bound_holds_for_the_plain_version():
+    """B6's bound (wine's row, where the kernel misses its fixed bar): at
+    D = 140 on narrow components with samples far out in their tails (log
+    densities down to ~-1e7, whose float32 rounding moves the
+    responsibilities), the plain float32 version within B6's bar (atol and
+    rtol 2e-3) plus s of float64 at every entry; an entry moved by twice
+    its bar + s is refused."""
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    cs = _chip_smoke()
+    means, inv, logw, logdets, x = _tail_mixture(d=140, n=800, seed=1)
+    comp, model = dl.densities_large_plain(means, inv, logw, logdets, x)
+    args = [means, inv, logw, comp, model, x]
+    want = dl.density_grads_large_plain(*args)
+    out = cs.large_grads_vs_float64(args, want, want)
+    assert out["ok"] and out["worst_over_bound"] <= 1.0, out
+    ref, bound, determined = cs.grads_float64(args)
+    assert int(determined.sum()) > 400
+    i = int(determined.nonzero()[0])
+    bad = want.clone()
+    r, b = float(ref[i, 0]), float(bound[i, 0])
+    bad[i, 0] = r + 2 * (2e-3 + 2e-3 * abs(r) + b)
+    assert not cs.large_grads_vs_float64(args, bad, want)["ok"]
+
+
+def test_large_grads_bound_leaves_out_undetermined_samples():
+    """Samples whose log densities reach ~1e9 (one unit in the last place
+    of float32 ~64) have responsibilities no float32 arithmetic fixes:
+    ``grads_float64`` marks them undetermined and the comparison leaves
+    them out (counting them), but still refuses a non-finite value
+    there."""
+    from gmmvi_tpu_torch.ops import density_large as dl
+
+    cs = _chip_smoke()
+    means, inv, logw, logdets, _ = _tail_mixture(d=140, n=400, seed=2)
+    g = torch.Generator().manual_seed(2)
+    x = means[torch.arange(400) % 4] \
+        + 1e-3 * torch.randn(400, 140, generator=g)
+    x[:5] = means[0] + 3e4                 # far out: log densities ~1e9
+    comp, model = dl.densities_large_plain(means, inv, logw, logdets, x)
+    assert float(model[:5].abs().min()) > 1e8
+    args = [means, inv, logw, comp, model, x]
+    want = dl.density_grads_large_plain(*args)
+    _, _, determined = cs.grads_float64(args)
+    assert not bool(determined[:5].any()) and bool(determined[5:].all())
+    out = cs.large_grads_vs_float64(args, want, want)
+    assert out["ok"] and out["undetermined_samples"] == 5, out
+    bad = want.clone()
+    bad[0, 0] = math.inf
+    assert not cs.large_grads_vs_float64(args, bad, want)["ok"]
+
+
 def _narrow_search(k=48, d=10):
     """A bracket search's inputs on narrow components: precisions of
     condition number up to 1e5 and rewards that nearly cancel them."""
@@ -127,3 +210,24 @@ def test_kl_bound_holds_along_a_search(inputs):
         assert not cs.visited_kl_vs_float64(args)["ok"]
     finally:
         tops.tr_kl = plain
+
+
+@pytest.mark.parametrize("kernel,plain,within,passes", [
+    (0, 0, True, True),       # the kernel meets the bar against float64
+    (3, 5, True, True),       # float32 itself misses it: the bound decides
+    (1, 0, True, False),      # only the kernel misses, the plain one meets
+    (0, 2, False, False),     # past the bound
+    (4, 4, False, False),
+])
+def test_float64_form_only_where_float32_misses_the_bar(kernel, plain,
+                                                        within, passes):
+    """``float64_form_ok``: a row held against float64 within bar + s
+    passes only if the kernel meets the bar there itself, or the float32
+    plain version misses it too; per output (B1, B2, B5) the counts are
+    summed over the outputs."""
+    cs = _chip_smoke()
+    check = {"ok": within, "beyond_bar": kernel, "plain_beyond_bar": plain}
+    assert cs.float64_form_ok(check) is passes
+    outputs = {"comp": {"beyond_bar": 0, "plain_beyond_bar": 0},
+               "grads": {"beyond_bar": kernel, "plain_beyond_bar": plain}}
+    assert cs.float64_form_ok({"ok": within}, outputs) is passes

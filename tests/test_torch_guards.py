@@ -36,6 +36,8 @@ def test_port_imports_with_jax_unavailable():
             "import gmmvi_tpu_torch, gmmvi_tpu_torch.experiments.setup, "
             "gmmvi_tpu_torch.optimization.gmmvi, gmmvi_tpu_torch.ops.cuda, "
             "gmmvi_tpu_torch.runner, gmmvi_tpu_torch.experiments.targets.gmm, "
+            "gmmvi_tpu_torch.experiments.targets.talos_ik, "
+            "gmmvi_tpu_torch.experiments.targets.bnn, "
             "gmmvi_tpu_torch.experiments.evaluation.mmd, "
             "gmmvi_tpu_torch.experiments.evaluation.plotting; "
             "print('ok')")
@@ -90,8 +92,12 @@ def test_stm20_defaults_equal_the_yaml_file():
     assert tcfg.get_default_config("SAMTRON", "stm20") == \
         jcfg.get_default_config("SAMTRON", "stm20")
     assert tcfg.ALL_CODENAME_LETTERS == jcfg.ALL_CODENAME_LETTERS
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcfg.get_default_experiment_config("wine")
+    for experiment in ("wine", "talos"):
+        with open(os.path.join(REPO, "gmmvi_tpu", "configs",
+                               "experiment_configs",
+                               f"{experiment}.yml")) as fh:
+            assert tcfg.get_default_experiment_config(experiment) == \
+                yaml.safe_load(fh)
 
 
 def test_stm300_defaults_equal_the_yaml_file():
@@ -151,7 +157,7 @@ def test_validate_config_reports_as_jax_does(case):
 
 
 @pytest.mark.parametrize("override,missing", [
-    ({"environment_name": "Talos", "environment_config": {}}, "Talos"),
+    ({"environment_name": "MNIST", "environment_config": {}}, "MNIST"),
     ({"tpu": {"db_eviction": "decimate"}}, "db_eviction"),
     ({"tpu": {"debug_nans": True}}, "debug_nans"),
     ({"tpu": {"trust_region_search": "newton"}}, "trust_region_search"),

@@ -594,8 +594,8 @@ def test_target_registry_builds_ported_and_names_missing():
     that is not ported yet."""
     from gmmvi_tpu_torch.experiments.setup import get_target_lnpdf
 
-    with pytest.raises(NotImplementedError, match="Talos"):
-        get_target_lnpdf("Talos", {}, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="MNIST"):
+        get_target_lnpdf("MNIST", {}, 0, device="cpu")
     t = get_target_lnpdf("GMM", {"num_dimensions": 3}, 0, device="cpu")
     assert t.get_num_dimensions() == 3
     t = get_target_lnpdf("DIAGGMM", {"num_dimensions": 3}, 0, device="cpu")

@@ -31,7 +31,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPERIMENTS = ("breast_cancer", "breast_cancer_mb", "german_credit",
-               "german_credit_mb", "planar_robot_4")
+               "german_credit_mb", "planar_robot_4", "talos", "wine")
 
 
 def _t(x, dtype=None):

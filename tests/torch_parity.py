@@ -264,8 +264,10 @@ def jax_state_from_leaves(like, named: dict):
 
 
 def port_target_to_float64(target) -> None:
-    """The port's Student-T, GMM or full-batch logistic-regression target
-    ``target`` evaluated in float64 from here on, in place: the Student-T's
+    """The port's Student-T, GMM, full-batch logistic-regression, Talos or
+    BNN target ``target`` evaluated in float64 from here on, in place (the
+    Talos and BNN targets already evaluate in the samples' float type,
+    their float32 constants and data cast exactly): the Student-T's
     and the regression's float32 parameters (the Student-T's factored in
     float64 on the host) and data cast exactly, the GMM's factors made anew in
     float64 from its float32 covariances (in float32 the factors of the
@@ -273,6 +275,8 @@ def port_target_to_float64(target) -> None:
     its gradients magnify; JAX's float64 copy does the same)."""
     from gmmvi_tpu_torch.models.gmm import create_gmm_state
 
+    if hasattr(target, "tree") or hasattr(target, "_x_tr"):
+        return                  # Talos, BNN: in the samples' float type
     if hasattr(target, "labels"):                        # logistic regr.
         for name in ("data", "labels"):
             setattr(target, name, getattr(target, name).double())
@@ -287,8 +291,8 @@ def port_target_to_float64(target) -> None:
 
 
 def jax_target_in_float64(target):
-    """A copy of JAX's Student-T, GMM or full-batch logistic-regression
-    target ``target`` that evaluates in float64 under
+    """A copy of JAX's Student-T, GMM, full-batch logistic-regression,
+    Talos or BNN target ``target`` that evaluates in float64 under
     ``jax.enable_x64(True)`` (call it there).  Its
     parameters are the original's float32 values cast exactly (the GMM's
     factors made anew in float64 from its covariances, as
@@ -348,7 +352,24 @@ def jax_target_in_float64(target):
                 - (theta - self.prior_mean) / self.prior_std ** 2
             return self.log_density(theta), grad
 
+    class Bnn64(type(target)):
+        def log_density_and_grad(self, x):
+            # jbnn.BNN_LNPDF.log_density_and_grad without its float32 cast
+            feats, labels = self._next_batches(x.shape[0])
+            if getattr(self, "_grad_fn64", None) is None:
+                self._grad_fn64 = jax.jit(
+                    jax.vmap(jax.value_and_grad(self._posterior_one)))
+            return self._grad_fn64(x, f64(feats), f64(labels))
+
+    from gmmvi_tpu.experiments.targets import bnn as jbnn
+    from gmmvi_tpu.experiments.targets import talos_ik as jtalos
+
     out = copy.copy(target)
+    if isinstance(target, jtalos.Talos):
+        return out           # its formulas keep the samples' float type
+    if isinstance(target, jbnn.BNN_LNPDF):
+        out.__class__ = Bnn64
+        return out
     if isinstance(target, jlr.LogisticRegression) and \
             not isinstance(target, jlr.LogisticRegression_minibatch):
         out.__class__ = LogReg64
