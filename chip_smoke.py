@@ -81,8 +81,28 @@ printing one JSON line:
    none of B1-B4 or B8, an ELBO at iteration 200 above its first
    evaluation's and at or above its floor, and a ``bi_test_loss`` at or
    below its ceiling (both from the JAX package's CPU runs that end above
-   their start).  Every path prints its median step ms, fevals and
-   launch counts;
+   their start).  Then the settings of ``tpu`` and of the adapter that
+   take other paths, each through ``GMMVI.build_from_config`` and
+   ``train_iter`` or the runner: SAMTRON on stm300 with
+   ``trust_region_search: newton`` (61 iterations; B5-B7; its trips a
+   step beside the bracket's on the stm300 path), the flagship with
+   grid, bracket-eigen and newton (30 iterations each; B1 and B2, not
+   B3's search), each held to a rising ELBO and every accepted component's
+   exact KL at its eta within 1.1 eps (grid: eps), and the KL of its
+   rebuilt float32 factors within the same bar on the flagship and no worse
+   than the bracket's on stm300, stm300's settings at D = 1,024 (20
+   iterations; no kernel launched, the peak memory printed), the flagship
+   ZAMTRUX with ``db_eviction: decimate`` and a 65,536-sample store (130
+   iterations; B1, B2, B4, B8; the store within its capacity every step and
+   decimated; step 21 again through the plain versions on the card and on
+   the CPU in float32 and float64: the database's and integer leaves and
+   what the database hands the kernels equal to the CPU's at the one-step
+   bar, and every model slot that float32 resolves within 1,000 bars of
+   float64) and the gmm20 runner with 1,000 prior samples and without a
+   database (300 iterations each; VIPS grows, B9 at the candidates'
+   count).  Every path prints its median
+   step ms, fevals and launch counts (the new ones also device-to-host
+   copies per step, from ``torch.profiler``);
 5. every kernel once more, on the inputs of its last launch: B1 and B2 at
    each of their call sizes on each D = 20 path (SAMTRON; ZAMTRUX, B2 over
    the reuse and the total window; the runner, B1 over the GMM target's
@@ -94,7 +114,9 @@ printing one JSON line:
    and B3's fused search on its last inputs on each D <= 64 path
    (SAMTRON, ZAMTRUX, the runner); on the new paths B1 and B2 (SEMIDUG,
    standard-IW SAMTRON), B4 at both sizes (SEMIDUG), B5 and B6 (SEPYFUX)
-   and B3's fused search (standard-IW SAMTRON); on the paper's experiments
+   and B3's fused search (standard-IW SAMTRON); B5-B7 on stm300 with
+   newton, B1 and B2 on the new D = 20 paths, B4 and B8 on the
+   decimating path, B9 on the gmm20 variants; on the paper's experiments
    and talos B1, B2 and B3's fused search at each call size, B4 at both
    and B9 at each; on wine B5 at each entry and call size, B6 and B7;
    each against its plain version at the bar of phase 3, timed as there.
@@ -135,6 +157,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
@@ -1721,9 +1744,9 @@ def capture_last_inputs(captured: dict):
     wrapper at each call size (under ("background_logpdf", N): the ESS
     pass over the reuse window, the finalize pass over the total window)
     and to B8's."""
-    from gmmvi_tpu_torch.optimization import ng_estimators, sample_db
+    from gmmvi_tpu_torch.optimization import ng_estimators, sample_window
 
-    return [recording(captured, sample_db, "background_logpdf",
+    return [recording(captured, sample_window, "background_logpdf",
                       key=lambda args: ("background_logpdf",
                                         args[4].shape[0])),
             recording(captured, ng_estimators, "more_grams")]
@@ -2040,13 +2063,15 @@ def large_d_phase(dev, captured):
     scripts build it: 130 iterations (61 if the step exceeds 150 ms over
     iterations 2-11), the launch counters set to 0 just before and read
     just after; the inputs of the last B5 (per call size), B6 and B7
-    launches go to ``captured``."""
+    launches go to ``captured``.  Every accepted component's KL over its
+    bound is watched between steps (``watch_updates``), and the slot whose
+    rebuilt float32 factors carry the largest is replayed on the CPU
+    (``rebuild_witness``)."""
     import torch
 
     from gmmvi_tpu_torch.configs import get_default_config
     from gmmvi_tpu_torch.experiments.setup import init_experiment
     from gmmvi_tpu_torch.ops import cuda
-    from gmmvi_tpu_torch.optimization import component_updaters
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     cfg = get_default_config("SAMTRON", "stm300")
@@ -2058,25 +2083,19 @@ def large_d_phase(dev, captured):
              sel.reused_samples_per_component, sel.max_background_dists)
     if shape != (D_LARGE, KMAX_LARGE, N_DES_LARGE, 2 * N_DES_LARGE, U_LARGE):
         raise AssertionError(f"stm300 built as {shape}")
-    # each step's reused-sample count (a device tensor, read at the end)
-    # and bisection trips (a host count)
-    reused, trips = [], []
+    # each step's reused-sample count (a device tensor, read at the end),
+    # bisection trips (a host count) and accepted KLs over their bounds
+    reused, trips, kl_ratios = [], [], []
     propose = gmmvi._propose_phase
-    search = component_updaters.bracket_search
 
     def recording_propose(state, draws):
         prop = propose(state, draws)
         reused.append(prop.num_reused)
         return prop
 
-    def counting_search(*args, **kw):
-        out = search(*args, **kw)
-        trips.append(out[2])
-        return out
-
     gmmvi._propose_phase = recording_propose
-    component_updaters.bracket_search = counting_search
-    restore = capture_large_d_inputs(captured)
+    flush, undos = watch_updates(kl_ratios, trips, "stm300")
+    restore = [*undos, *capture_large_d_inputs(captured)]
 
     torch.cuda.reset_peak_memory_stats(dev)
     cuda.reset_launch_counts()
@@ -2085,24 +2104,23 @@ def large_d_phase(dev, captured):
     gmmvi.train_iter()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    flush()
     start_lnpdf = newest_window_mean_lnpdf(gmmvi.state.db)
     start_elbo, start_density = elbo(gmmvi.state.model, target)
-    iters, done, probe_ms = MAIN_ITERS, 1, None
-    t0 = time.perf_counter()
-    while done < iters:
+    iters, step_s, probe_ms = MAIN_ITERS, [], None
+    while len(step_s) < iters - 1:
+        t0 = time.perf_counter()
         gmmvi.train_iter()
-        done += 1
-        if done == 11:
-            torch.cuda.synchronize()
-            probe_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        flush()                     # the KLs, outside the step's time
+        if len(step_s) == 10:
+            probe_ms = sum(step_s) / 10 * 1e3
             if probe_ms > LARGE_STEP_MS_CAP:
                 iters = LARGE_ITERS_CUT
-    torch.cuda.synchronize()
-    steady_s = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
     for undo in restore:
         undo()
-    component_updaters.bracket_search = search
 
     st = gmmvi.state
     num_active = int(st.model.num_active)
@@ -2111,11 +2129,12 @@ def large_d_phase(dev, captured):
     means_finite = bool(torch.isfinite(st.model.means[:num_active]).all())
     reused = [int(r) for r in reused]
     fevals = int(st.db.num_samples_written)
-    step_ms = steady_s / (iters - 1) * 1e3
+    step_ms = sum(step_s) / len(step_s) * 1e3
     out = dict(
         phase="main_path", codename="SAMTRON", experiment="stm300",
         iterations=iters, cut_to_61=iters != MAIN_ITERS,
         probe_step_ms=probe_ms, first_step_s=first_s, step_ms=step_ms,
+        median_step_ms=statistics.median(step_s) * 1e3,
         samples_per_s=KMAX_LARGE * N_DES_LARGE / (step_ms / 1e3),
         fevals=fevals, fevals_per_step=fevals / iters,
         trips_per_step=sum(trips) / iters,
@@ -2127,8 +2146,11 @@ def large_d_phase(dev, captured):
         draws_mean_target_lnpdf_end=end_density,
         window_mean_target_lnpdf_start=start_lnpdf,
         window_mean_target_lnpdf_end=end_lnpdf, means_finite=means_finite,
-        peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+        peak_mem_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+        **kl_summary(kl_ratios),
+        worst_rebuild=rebuild_witness(WORST_REBUILD["stm300"]))
     emit(out)
+    LINES_12["stm300"] = out
     if not means_finite:
         raise AssertionError("non-finite means after the stm300 path")
     if not 1 <= num_active <= KMAX_LARGE:
@@ -2325,7 +2347,7 @@ def large_d_input_rows(captured, path: str = "stm300") -> dict:
                 or "stein_smom" not in captured:
             raise AssertionError(f"expected B5 (both entries), B6 and B7 "
                                  f"on wine, got {sorted(captured, key=str)}")
-    elif path == "stm300":
+    elif path in ("stm300", "stm300_newton"):
         step_sizes = {(k[0], k[2]) for k in keys} & {
             ("densities_large", N_REUSE_LARGE), ("densities_large", N_LARGE),
             ("mixture_logpdf_large", N_REUSE_LARGE),
@@ -2344,7 +2366,7 @@ def large_d_input_rows(captured, path: str = "stm300") -> dict:
                 for key in keys]
     measures += [("density_grads_large", path, lambda: measure_large_grads(
         captured["density_grads_large"]))]
-    if path in ("stm300", "wine"):
+    if path in ("stm300", "stm300_newton", "wine"):
         measures += [("stein_smom", path,
                       lambda: measure_stein(captured["stein_smom"]))]
     out: dict = {}
@@ -2748,7 +2770,7 @@ def paper_phase(dev, experiment, searches, densities, captured):
     from gmmvi_tpu_torch.configs import get_default_config
     from gmmvi_tpu_torch.ops import cuda
     from gmmvi_tpu_torch.ops import mixture_logpdf as mops
-    from gmmvi_tpu_torch.optimization import sample_db
+    from gmmvi_tpu_torch.optimization import sample_window
 
     iters, want_shape = PAPER_PATHS[experiment]
     runner = build_runner(dev, get_default_config("SAMTRON", experiment))
@@ -2763,7 +2785,7 @@ def paper_phase(dev, experiment, searches, densities, captured):
     restore = [recording(captured, mops, "mixture_logpdf",
                          key=lambda args: ("mixture_logpdf",
                                            args[4].shape[0])),
-               recording(captured, sample_db, "background_logpdf",
+               recording(captured, sample_window, "background_logpdf",
                          key=lambda args: ("background_logpdf",
                                            args[4].shape[0])),
                watch_search(searches, experiment, trips),
@@ -3011,6 +3033,824 @@ def diagonal_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The trust-region searches, D > 512, the decimating database, prior
+# samples and candidates without a database
+# ---------------------------------------------------------------------------
+
+# stm300 with newton; the flagship with each search; SAMTRON at D = 1,024
+NEWTON_ITERS, SEARCH_ITERS, STM1024_ITERS, D_XLA = 61, 30, 20, 1024
+SEARCH_PATHS_12 = {"samtron_grid": "grid", "samtron_eigen": "bracket-eigen",
+                   "samtron_newton": "newton"}
+# an accepted component's KL(new || old) at its accepted eta, exact (in
+# float64 from the update's inputs), at most (1 + KL_SLACK) eps (the grid
+# search accepts feasible points only: at most eps), each bar raised by
+# ROUNDING_SLACK eps for the search's float32 KL; the KL of the rebuilt
+# float32 factors is reported beside it
+KL_SLACK, ROUNDING_SLACK = 0.1, 1e-3
+# the flagship ZAMTRUX with the decimating database; step 21 on the card
+# against the CPU and float64 (``zamtrux_decimate_phase``): a model slot
+# resolved by float32 ends within SLOT_BAR one-step bars of float64 in
+# both plain arithmetics, and so through the kernels; at least
+# MIN_RESOLVED_SHARE of the active slots resolved
+DECIMATE_ITERS, DECIMATE_DB_SIZE, DECIMATE_COMPARED_STEP = 130, 65536, 20
+SLOT_BAR, MIN_RESOLVED_SHARE = 1000.0, 0.5
+# the quick-start runner with prior samples, and without a database
+GMM20_ITERS_12, N_PRIOR = 300, 1000
+# device-to-host copies: steps traced by torch.profiler after a path's run
+COPIES_STEPS = 3
+LINES_12: dict = {}
+WORST_REBUILD: dict = {}
+
+
+def copies_per_step(step, steps: int = COPIES_STEPS) -> float:
+    """Device-to-host copies per call of ``step`` over ``steps`` calls
+    traced by ``torch.profiler``: its ``DtoH`` memcpy records, counted as
+    ``scripts/profile_torch_step.py`` counts them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if "DtoH" in ev.key and not ev.key.startswith(("aten::",
+                                                              "cuda"))
+               ) / steps
+
+
+def gauss_kl64(new_means, new_chols, old):
+    """``[Kmax]`` KL(new || old) in float64 of each slot's Gaussians, the new
+    ones given by their means and lower factors, the old factor inverted
+    anew in float64."""
+    import torch
+
+    lo = old.chols.double()
+    eye = torch.eye(lo.shape[-1], dtype=torch.float64, device=lo.device)
+    inv = torch.linalg.solve_triangular(lo, eye.expand_as(lo), upper=False)
+    diff = (old.means.double() - new_means.double())[:, :, None]
+    logdet = [2.0 * torch.log(torch.diagonal(c, dim1=-2, dim2=-1)).sum(-1)
+              for c in (lo, new_chols.double())]
+    return 0.5 * (torch.sum(torch.square(inv @ new_chols.double()),
+                            dim=(-2, -1))
+                  + torch.sum(torch.square(inv @ diff), dim=(-2, -1))
+                  - lo.shape[-1] + logdet[0] - logdet[1])
+
+
+def exact_update_kl64(model, hess, grads, etas):
+    """``[Kmax]`` KL(new || old) of the exact trust-region interpolation at
+    ``etas`` (``P' = P + R / eta``, ``l' = P mu + (R mu - g) / eta``, R the
+    symmetric part of the Hessian estimate), all in float64: what the
+    search's float32 KL approximates."""
+    import torch
+
+    lo = model.chols.double()
+    eye = torch.eye(lo.shape[-1], dtype=torch.float64, device=lo.device)
+    inv = torch.linalg.solve_triangular(lo, eye.expand_as(lo), upper=False)
+    mu, h = model.means.double(), hess.double()
+    prec = inv.mT @ inv
+    e = torch.clamp(etas.double(), min=1e-30)
+    new_prec = prec + 0.5 * (h + h.mT) / e[:, None, None]
+    new_lin = (prec @ mu[:, :, None])[..., 0] + (
+        (h @ mu[:, :, None])[..., 0] - grads.double()) / e[:, None]
+    lp, info = torch.linalg.cholesky_ex(new_prec)
+    lp = torch.where((info != 0)[:, None, None], eye, lp)
+    new_mean = torch.cholesky_solve(new_lin[:, :, None], lp)[..., 0]
+    new_chol = torch.linalg.solve_triangular(lp.mT, eye.expand_as(lp),
+                                             upper=True)
+    # new_chol new_chol^T = new_prec^{-1}: the KL needs only that product
+    return torch.where(info == 0, gauss_kl64(new_mean, new_chol, model),
+                       torch.nan)
+
+
+def watch_updates(kl_ratios: list, trips: list, path=None):
+    """Wrap the trust-region updater: each update's inputs and result are
+    kept, and ``flush()`` (called between steps, outside their timing)
+    turns them into every accepted component's KL over its bound eps (NaN
+    elsewhere; device tensors, read at the end), exact at the accepted eta
+    and of the rebuilt factors, in ``kl_ratios``; with ``path``, the slot
+    whose rebuilt factors carried the largest KL over eps keeps its inputs
+    in ``WORST_REBUILD[path]`` (``rebuild_witness`` replays it).  The
+    Newton and bracket host loops' trips go to ``trips``.  Returns
+    (flush, undos)."""
+    import torch
+
+    from gmmvi_tpu_torch.optimization import component_updaters as cu
+
+    update = cu.UPDATERS["trust-region"]
+    pending = []
+
+    def recording_update(model, meta, hess, grads, stepsizes, **kw):
+        res = update(model, meta, hess, grads, stepsizes, **kw)
+        pending.append((model, meta, hess, grads, stepsizes, res))
+        return res
+
+    def flush():
+        for model, meta, hess, grads, stepsizes, res in pending:
+            etas = res.meta.last_etas
+            accepted = (etas > 0) & model.mask
+            eps = stepsizes.double()
+            ratios = torch.stack([torch.where(accepted, kl / eps, torch.nan)
+                                  for kl in (exact_update_kl64(model, hess,
+                                                               grads, etas),
+                                             gauss_kl64(res.model.means,
+                                                        res.model.chols,
+                                                        model))])
+            kl_ratios.append(ratios)
+            if path is None:
+                continue
+            rebuilt = torch.nan_to_num(ratios[1], nan=-1.0)
+            k = int(torch.argmax(rebuilt))
+            if float(rebuilt[k]) <= WORST_REBUILD.get(path, {}).get(
+                    "kl_rebuilt_over_eps", -1.0):
+                continue
+            WORST_REBUILD[path] = {
+                "kl_at_eta_over_eps": float(ratios[0, k]),
+                "kl_rebuilt_over_eps": float(rebuilt[k]), "slot": k,
+                **{name: t[k].detach().cpu().numpy() for name, t in (
+                    ("eps", stepsizes), ("eta", etas),
+                    ("last_eta", meta.last_etas), ("mean", model.means),
+                    ("chol", model.chols), ("inv_chol", model.inv_chols),
+                    ("hess", hess), ("grads", grads),
+                    ("new_mean", res.model.means),
+                    ("new_chol", res.model.chols))}}
+        pending.clear()
+
+    def counting(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            trips.append(out[2])
+            return out
+        return call
+
+    searches = {name: getattr(cu, name)
+                for name in ("newton_search", "bracket_search")}
+    cu.UPDATERS["trust-region"] = recording_update
+    for name, fn in searches.items():
+        setattr(cu, name, counting(fn))
+
+    def undo():
+        cu.UPDATERS["trust-region"] = update
+        for name, fn in searches.items():
+            setattr(cu, name, fn)
+    return flush, [undo]
+
+
+def rebuild_witness(rec: dict) -> dict:
+    """The worst rebuilt update of a path (``WORST_REBUILD``), on the CPU:
+    the port's float32 rebuild at the card's accepted eta (the CPU's
+    rounding in place of the card's) and the float64 one, each as KL over
+    eps, and the condition numbers of the old covariance and of the new
+    precision (float64).  ``scripts/jax_rebuild_kl.py`` replays the same
+    inputs through the JAX package."""
+    import torch
+
+    from gmmvi_tpu_torch.ops.trust_region import prepare_tr_kl_inputs
+    from gmmvi_tpu_torch.optimization.component_updaters import \
+        _tr_final_full
+
+    def one(name, dtype):
+        return torch.as_tensor(rec[name])[None].to(dtype)
+
+    out = {}
+    for label, dtype in (("cpu_float32", torch.float32),
+                         ("cpu_float64", torch.float64)):
+        mean, chol, inv_chol, hess, grads = (
+            one(n, dtype) for n in ("mean", "chol", "inv_chol", "hess",
+                                    "grads"))
+        reward_quad = 0.5 * (hess + hess.mT)
+        reward_lin = torch.einsum("kij,kj->ki", hess, mean) - grads
+        inp = prepare_tr_kl_inputs(mean, chol, inv_chol, reward_lin,
+                                   reward_quad)
+        _, new_mean, new_chol, _ = _tr_final_full(
+            one("eta", dtype), inp.lin, inp.prec, inv_chol, reward_lin,
+            reward_quad, inp.kl_const, mean)
+        old = SimpleNamespace(means=mean, chols=chol)
+        out[f"kl_rebuilt_{label}_over_eps"] = float(
+            gauss_kl64(new_mean, new_chol, old)[0] / float(rec["eps"]))
+    # (a covariance and its precision have the same condition number)
+    for name, c in (("old", chol[0]), ("new", new_chol[0])):
+        out[f"{name}_covariance_cond"] = float(torch.linalg.cond(c @ c.T))
+    return out
+
+
+def kl_summary(kl_ratios: list) -> dict:
+    """The accepted components' KL / eps over a run, exact at the accepted
+    eta and of the rebuilt float32 factors: count, largest, smallest and
+    the share within 0.1 of 1."""
+    import torch
+
+    r = torch.stack(kl_ratios)                          # [steps, 2, Kmax]
+    out = {}
+    for i, name in enumerate(("kl_at_eta", "kl_rebuilt")):
+        v = r[:, i][torch.isfinite(r[:, i])]
+        out[name + "_over_eps_max"] = float(v.max()) if v.numel() else None
+        out[name + "_over_eps_min"] = float(v.min()) if v.numel() else None
+        out[name + "_within_tenth_share"] = float(
+            (torch.abs(v - 1.0) < KL_SLACK).double().mean()) \
+            if v.numel() else None
+    out["accepted"] = int(torch.isfinite(r[:, 0]).sum())
+    return out
+
+
+def run_path(dev, gmmvi, iters: int, step=None, before_step=None):
+    """``iters`` calls of ``step`` (``gmmvi.train_iter`` by default) with
+    the launch counters set to 0 just before and read just after; each
+    step's wall time (ending in a synchronize), and ``before_step(i)``
+    called before step i.  Returns (step seconds, launches)."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import cuda
+
+    step = step or (lambda i: gmmvi.train_iter())
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    step_s = []
+    for i in range(iters):
+        if before_step is not None:
+            before_step(i)
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return step_s, dict(cuda.LAUNCHES)
+
+
+def path_line(path, gmmvi, step_s, launches, dev, **extra) -> dict:
+    """The common fields of a path's line, emitted with ``extra``: median
+    step ms (steps after the first), fevals, launches, device-to-host
+    copies per step (``COPIES_STEPS`` more steps under the profiler) and
+    the peak memory of the run."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    fevals = int(gmmvi.state.db.num_samples_written)
+    out = dict(phase="main_path", path=path, iterations=len(step_s),
+               first_step_s=step_s[0],
+               median_step_ms=statistics.median(step_s[1:]) * 1e3,
+               fevals=fevals, launches=launches,
+               launches_per_step={k: v / len(step_s)
+                                  for k, v in launches.items()},
+               peak_mem_mb=peak, **extra)
+    out["device_to_host_copies_per_step"] = copies_per_step(gmmvi.train_iter)
+    out["state_finite"] = model_finite(gmmvi.state)
+    LINES_12[path] = out
+    emit(out)
+    if not out["state_finite"]:
+        raise AssertionError(f"a non-finite state after the {path} path")
+    return out
+
+
+def stm300_newton_phase(dev, captured):
+    """SAMTRON on stm300 with ``tpu.trust_region_search: newton``, nothing
+    else cut, 61 iterations: the Newton search around the whitened KL and
+    its slope (a host loop, one flag read a trip), B5-B7 on the card (their
+    last inputs to ``captured``).  Holds: a finite state, a rising ELBO,
+    B5-B7 launched, every accepted component's exact KL at its eta at most
+    1.101 eps (``exact_update_kl64``), and the KL of its rebuilt float32
+    factors no worse than the bracket's on the stm300 path (at most
+    1.101 eps or the bracket's largest there); prints its trips per step
+    beside the bracket's."""
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg = update_config(get_default_config("SAMTRON", "stm300"),
+                        {"tpu": {"trust_region_search": "newton"}})
+    target, model, meta = init_experiment(cfg, device=dev)
+    gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+    if (model.num_dimensions, model.max_components) != (D_LARGE,
+                                                        KMAX_LARGE):
+        raise AssertionError("stm300 with newton built at another size")
+    kl_ratios, trips = [], []
+    flush, undos = watch_updates(kl_ratios, trips, "stm300_newton")
+    restore = [*undos, *capture_large_d_inputs(captured)]
+    elbo_start = [None]
+
+    def step(i):
+        gmmvi.train_iter()
+        if i == 0:
+            elbo_start[0] = elbo(gmmvi.model, target)[0]
+
+    step_s, launches = run_path(dev, gmmvi, NEWTON_ITERS, step,
+                                before_step=lambda i: flush())
+    flush()
+    elbo_end, _ = elbo(gmmvi.model, target)
+    for undo in restore:
+        undo()
+    bracket = LINES_12.get("stm300", {})
+    bar = 1.0 + KL_SLACK + ROUNDING_SLACK
+    rebuilt_bar = max(bar, bracket.get("kl_rebuilt_over_eps_max") or bar)
+    out = path_line(
+        "stm300_newton", gmmvi, step_s, launches, dev,
+        codename="SAMTRON", experiment="stm300", search="newton",
+        trips_per_step=sum(trips) / NEWTON_ITERS,
+        bracket_trips_per_step=bracket.get("trips_per_step"),
+        bracket_median_step_ms=bracket.get("median_step_ms"),
+        elbo_start=elbo_start[0], elbo_end=elbo_end,
+        num_active=int(gmmvi.model.num_active), **kl_summary(kl_ratios),
+        kl_rebuilt_bar=rebuilt_bar,
+        worst_rebuild=rebuild_witness(WORST_REBUILD["stm300_newton"]))
+    if not elbo_end > elbo_start[0]:
+        raise AssertionError(f"stm300 with newton: the ELBO did not improve:"
+                             f" {elbo_start[0]} -> {elbo_end}")
+    for name in LARGE_KERNELS:
+        if launches[name] < NEWTON_ITERS:
+            raise AssertionError(f"{name}: {launches[name]} launches on "
+                                 "stm300 with newton")
+    if out["kl_at_eta_over_eps_max"] is None \
+            or out["kl_at_eta_over_eps_max"] > bar:
+        raise AssertionError(f"stm300 with newton: an accepted KL over "
+                             f"{bar} eps: {out}")
+    if out["kl_rebuilt_over_eps_max"] > rebuilt_bar:
+        raise AssertionError(f"stm300 with newton: rebuilt factors at a KL "
+                             f"over {rebuilt_bar} eps: {out}")
+    return launches
+
+
+def flagship_search_phase(dev, path, densities):
+    """SAMTRON at the flagship widths (45 components in 48 slots, 200
+    samples each) with ``tpu.trust_region_search`` grid, bracket-eigen or
+    newton, 30 iterations; the last B1 and B2 inputs to ``densities``.
+    Holds: a finite state, a rising ELBO, B1 and B2 launched and B3's
+    search not, every accepted component's exact KL at its eta, and the KL
+    of its rebuilt float32 factors, at most 1.101 eps (grid: 1.001 eps;
+    the 0.001 for float32's rounding, ``ROUNDING_SLACK``)."""
+    from gmmvi_tpu_torch.configs import update_config
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
+        make_target
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    search = SEARCH_PATHS_12[path]
+    target = make_target(num_dimensions=D, harder_setting=False, seed=0,
+                         device=dev)
+    cfg = update_config(flagship_config(),
+                        {"tpu": {"trust_region_search": search}})
+    cfg["target_fn"] = target
+    _, model, meta = init_experiment(cfg, device=dev)
+    gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+    kl_ratios, trips = [], []
+    flush, undos = watch_updates(kl_ratios, trips)
+    restore = [*undos, *capture_density_inputs(densities, path)]
+    elbo_start, _ = elbo(gmmvi.model, target)
+    step_s, launches = run_path(dev, gmmvi, SEARCH_ITERS,
+                                before_step=lambda i: flush())
+    flush()
+    elbo_end, _ = elbo(gmmvi.model, target)
+    for undo in restore:
+        undo()
+    out = path_line(path, gmmvi, step_s, launches, dev, codename="SAMTRON",
+                    experiment="flagship", search=search,
+                    trips_per_step=sum(trips) / SEARCH_ITERS,
+                    elbo_start=elbo_start, elbo_end=elbo_end,
+                    num_active=int(gmmvi.model.num_active),
+                    **kl_summary(kl_ratios))
+    if not elbo_end > elbo_start:
+        raise AssertionError(f"{path}: the ELBO did not improve: "
+                             f"{elbo_start} -> {elbo_end}")
+    if launches["density_pack"] < SEARCH_ITERS \
+            or launches["densities"] < SEARCH_ITERS:
+        raise AssertionError(f"{path}: B1/B2 launches {launches}")
+    if launches["tr_search"] or launches["tr_kl"]:
+        raise AssertionError(f"{path}: B3 launched: {launches}")
+    bar = 1.0 + ROUNDING_SLACK + (0.0 if search == "grid" else KL_SLACK)
+    for name in ("kl_at_eta_over_eps_max", "kl_rebuilt_over_eps_max"):
+        if out[name] is None or out[name] > bar:
+            raise AssertionError(f"{path}: {name} over {bar}: {out}")
+    return launches
+
+
+def stm1024_phase(dev):
+    """SAMTRON with stm300's settings at D = 1,024 (the Student-T target
+    generator takes any D), 20 iterations: above D = 512 no kernel takes
+    the densities, in the port as in the JAX package (the XLA chain in
+    plain torch, in slabs of components), nor the background, the Stein
+    moments (B7 takes D <= 512) or the search (B3 D <= 64).  Holds: a
+    finite state, a rising ELBO, no kernel launched; prints the peak
+    memory."""
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg = update_config(get_default_config("SAMTRON", "stm300"),
+                        {"environment_config": {"num_dimensions": D_XLA}})
+    target, model, meta = init_experiment(cfg, device=dev)
+    gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+    if model.num_dimensions != D_XLA:
+        raise AssertionError(f"stm1024 built at D = {model.num_dimensions}")
+    elbo_start, _ = elbo(gmmvi.model, target)
+    step_s, launches = run_path(dev, gmmvi, STM1024_ITERS)
+    elbo_end, _ = elbo(gmmvi.model, target)
+    sel = gmmvi.selector_cfg
+    path_line("stm1024", gmmvi, step_s, launches, dev,
+                    codename="SAMTRON", experiment="stm300 at D = 1024",
+                    d=D_XLA, max_components=model.max_components,
+                    n_des=sel.desired_samples_per_component,
+                    reused=sel.reused_samples_per_component,
+                    ring_rows=gmmvi.state.db.ring_iters,
+                    elbo_start=elbo_start, elbo_end=elbo_end,
+                    num_active=int(gmmvi.model.num_active))
+    if not elbo_end > elbo_start:
+        raise AssertionError(f"stm1024: the ELBO did not improve: "
+                             f"{elbo_start} -> {elbo_end}")
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched at D = {D_XLA}: {launches}")
+    return launches
+
+
+def plain_versions():
+    """Every kernel wrapper replaced by its plain PyTorch version where the
+    port calls it (the launch counters then stay still); returns the
+    undo."""
+    from gmmvi_tpu_torch.ops import (background, density, density_large,
+                                     mixture_logpdf, more, stein,
+                                     trust_region)
+    from gmmvi_tpu_torch.optimization import (component_updaters,
+                                              ng_estimators, sample_window)
+
+    swaps = {(density, "density_pack"): density.density_pack_plain,
+             (density, "densities"): density.densities_plain,
+             (mixture_logpdf, "mixture_logpdf"):
+                 mixture_logpdf.mixture_logpdf_plain,
+             (density_large, "densities_large"):
+                 density_large.densities_large_plain,
+             (density_large, "mixture_logpdf_large"):
+                 density_large.mixture_logpdf_large_plain,
+             (density_large, "density_grads_large"):
+                 density_large.density_grads_large_plain,
+             (stein, "stein_smom"): stein.stein_smom_plain,
+             (sample_window, "background_logpdf"):
+                 background.background_logpdf_plain,
+             (ng_estimators, "more_grams"): more.more_grams_plain,
+             (component_updaters, "tr_search"): trust_region.tr_search_plain}
+    saved = {key: getattr(*key) for key in swaps}
+    for (module, attr), fn in swaps.items():
+        setattr(module, attr, fn)
+
+    def undo():
+        for (module, attr), fn in saved.items():
+            setattr(module, attr, fn)
+    return undo
+
+
+def student_t_to_float64(target) -> None:
+    """The port's Student-T mixture target evaluated in float64 from here
+    on, in place: its float32 parameters cast exactly."""
+    for name in ("_means", "_chols", "_inv_chols", "_log_dets", "_log_w"):
+        setattr(target, name, getattr(target, name).double())
+
+
+def watch_windows(into: dict):
+    """Keep, while ``into["on"]`` is a dict, what the decimating database
+    hands the kernels in a step: each window it gathers (samples, mapping,
+    target log densities, iterations, validity, and the background that B4
+    computes over it), by size, and the rows B4 weighs (means, inverse
+    factors, log weights, log determinants).  Returns the undo."""
+    import torch
+
+    from gmmvi_tpu_torch.optimization import sample_db_decimate as dec
+
+    window, bg = dec.get_newest_samples, dec.background
+
+    def numpy(t):
+        t = t.detach().cpu()
+        return t.double().numpy() if t.is_floating_point() \
+            else t.to(torch.int64).numpy()
+
+    def recording_window(db, size, *args):
+        win = window(db, size, *args)
+        if into["on"] is not None:
+            into["on"].update({f"window{size}.{name}": numpy(getattr(win,
+                                                                     name))
+                               for name in ("samples", "mapping",
+                                            "target_lnpdfs", "sample_iters",
+                                            "valid", "background_log_pdfs")})
+        return win
+
+    def recording_background(diagonal, means, inv_chols, log_weights,
+                             log_dets, samples):
+        if into["on"] is not None:
+            n = samples.shape[0]
+            into["on"].update({f"rows{n}.{name}": numpy(t) for name, t in (
+                ("means", means), ("inv_chols", inv_chols),
+                ("log_weights", log_weights), ("log_dets", log_dets))})
+        return bg(diagonal, means, inv_chols, log_weights, log_dets, samples)
+
+    dec.get_newest_samples, dec.background = recording_window, \
+        recording_background
+
+    def undo():
+        dec.get_newest_samples, dec.background = window, bg
+    return undo
+
+
+def slot_ratios(got: dict, want: dict, kmax: int) -> dict:
+    """For each float leaf of the model and the meta-state (each has a
+    leading Kmax axis): ``[Kmax]`` each slot's largest error against the
+    one-step bar's scale, ``atol + rtol |want|`` (inf where NaN or
+    infinities sit elsewhere)."""
+    import numpy as np
+
+    out = {}
+    for name, w in want.items():
+        if not name.startswith(("model.", "meta.")) or w.ndim == 0 \
+                or np.issubdtype(w.dtype, np.integer) or w.shape[0] != kmax:
+            continue
+        g = got[name].astype(np.float64).reshape(kmax, -1)
+        w = w.astype(np.float64).reshape(kmax, -1)
+        fin = np.isfinite(w)
+        same = (np.isfinite(g) == fin) & np.where(
+            fin, True, (g == w) | (np.isnan(g) & np.isnan(w)))
+        diff = np.where(fin, np.abs(np.where(fin, g, 0.0) - np.where(
+            fin, w, 0.0)), 0.0)
+        ratio = diff / (DIAG_ATOL + DIAG_RTOL * np.abs(np.where(fin, w,
+                                                                0.0)))
+        out[name] = np.where(same.all(1), ratio.max(1), np.inf)
+    return out
+
+
+def zamtrux_decimate_phase(dev, captured, densities):
+    """ZAMTRUX at the flagship widths (reuse 2.0, a 28,800-sample window)
+    with ``tpu.db_eviction: decimate`` and ``max_database_size`` 65,536,
+    130 iterations; the last B4 and B8 inputs to ``captured``, B1's and
+    B2's to ``densities``.  Holds: the store's count within its capacity
+    after every step, more samples written than it holds (it decimated), a
+    rising ELBO, and B1, B2, B4 and B8 launched.
+
+    Step 21 runs again from the same state and draws four ways: on the
+    card through the kernels (the run's own step, K), on the card through
+    the plain versions (P), and on the CPU in float32 (C) and in float64
+    (F, the reference: state, draws and target cast exactly).  Held: K
+    against C at the one-step bar (integers exact, floats within rtol 1e-4
+    / atol 1e-5) in the database's leaves, every integer leaf, and what
+    the decimating database hands the kernels (both windows with their
+    background, and the table rows B4 weighs).  The model's and
+    meta-state's floats part from F in any float32 arithmetic where
+    MORE's ridge-1e-12 fit is ill-conditioned, so they are held slot by
+    slot: a slot is resolved by float32 where both plain arithmetics, P
+    and C, end within ``SLOT_BAR`` bars of F in every leaf, and there K
+    must too; at least ``MIN_RESOLVED_SHARE`` of the active slots must be
+    resolved.  Each run's slots that F accepted and it rejected, or the
+    other way, are counted."""
+    import numpy as np
+    import torch
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch import StepDraws
+    from gmmvi_tpu_torch.configs import update_config
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
+        make_target
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+    from gmmvi_tpu_torch.optimization.sample_db_decimate import \
+        DecimatingDbState
+
+    def build(device):
+        target = make_target(num_dimensions=D, harder_setting=False, seed=0,
+                             device=device)
+        cfg = update_config(flagship_config(codename="ZAMTRUX"), {
+            "max_database_size": DECIMATE_DB_SIZE,
+            "tpu": {"db_eviction": "decimate"}})
+        cfg["target_fn"] = target
+        _, model, meta = init_experiment(cfg, device=device)
+        return GMMVI.build_from_config(cfg, target, model, meta,
+                                       device=device), target
+
+    gmmvi, target = build(dev)
+    db = gmmvi.state.db
+    if not isinstance(db, DecimatingDbState) \
+            or db.capacity != DECIMATE_DB_SIZE:
+        raise AssertionError(f"the decimating database built as "
+                             f"{type(db).__name__} [{db.capacity}]")
+    handed = {"on": None}
+    capture = [*capture_last_inputs(captured),
+               *capture_density_inputs(densities, "zamtrux_decimate")]
+    watch = watch_windows(handed)
+    counts, compared, windows = [], {}, {}
+
+    def step(i):
+        if i == DECIMATE_COMPARED_STEP:
+            compared["before"] = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+            compared["draws"] = gmmvi.draw(gmmvi.num_updates)
+            handed["on"] = windows.setdefault("K", {})
+            gmmvi.train_iter(compared["draws"])
+            handed["on"] = None
+            compared["K"] = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+        else:
+            gmmvi.train_iter()
+        counts.append(gmmvi.state.db.count)
+
+    elbo_start, _ = elbo(gmmvi.model, target)
+    step_s, launches = run_path(dev, gmmvi, DECIMATE_ITERS, step)
+    elbo_end, _ = elbo(gmmvi.model, target)
+    counts = torch.stack(counts).tolist()
+    # the kernels' last inputs are the card run's, not the witnesses'
+    for undo in capture:
+        undo()
+
+    def again(run, device, float64=False, plain=False):
+        g, t = build(device)
+        state, draws = compared["before"], compared["draws"]
+        if float64:
+            student_t_to_float64(t)
+            state = {k: v.astype(np.float64) if v.dtype == np.float32
+                     else v for k, v in state.items()}
+        g.state = gmmvi_tpu_torch.state_from_numpy(state, device=device,
+                                                   like=g.state)
+        draws = StepDraws(**{
+            f: None if v is None else v.to(device, torch.float64
+                                           if float64 and v.is_floating_point()
+                                           else v.dtype)
+            for f, v in vars(draws).items()})
+        undo_plain = plain_versions() if plain else None
+        before = dict(cuda.LAUNCHES)
+        handed["on"] = windows.setdefault(run, {})
+        try:
+            g.train_iter(draws)
+        finally:
+            handed["on"] = None
+            if undo_plain is not None:
+                undo_plain()
+        if plain and dict(cuda.LAUNCHES) != before:
+            raise AssertionError("a kernel launched in the plain run")
+        compared[run] = gmmvi_tpu_torch.state_to_numpy(g.state)
+
+    again("P", dev, plain=True)
+    again("C", "cpu")
+    again("F", "cpu", float64=True)
+    watch()
+
+    k_run, c_run = compared["K"], compared["C"]
+    held = [k for k, v in c_run.items()
+            if k.startswith("db.") or np.issubdtype(v.dtype, np.integer)]
+    db_cmp = compare_states({k: k_run[k] for k in held},
+                            {k: c_run[k] for k in held}, DIAG_RTOL,
+                            DIAG_ATOL)
+    win_cmp = compare_states(windows["K"], windows["C"], DIAG_RTOL,
+                             DIAG_ATOL)
+    kmax, fl = KMAX, compared["F"]
+    active = np.arange(kmax) < int(fl["model.num_active"])
+    per_run = {run: slot_ratios(compared[run], fl, kmax)
+               for run in ("K", "P", "C")}
+    worst = {run: np.max(np.stack(list(r.values())), 0)
+             for run, r in per_run.items()}                  # [Kmax]
+    resolved = active & (worst["P"] <= SLOT_BAR) & (worst["C"] <= SLOT_BAR)
+    missed = [int(k) for k in np.flatnonzero(resolved & (worst["K"]
+                                                          > SLOT_BAR))]
+    accepted_f = fl["meta.last_etas"] > 0
+    flips = {run: int(np.sum(active & ((compared[run]["meta.last_etas"] > 0)
+                                       != accepted_f)))
+             for run in ("K", "P", "C")}
+    pair_cmp = {f"{a}_vs_{b}": compare_states(compared[a], compared[b],
+                                              DIAG_RTOL, DIAG_ATOL)["worst"]
+                for a, b in (("K", "C"), ("P", "C"), ("K", "P"),
+                             ("C", "F"))}
+    st = gmmvi.state.db
+    out = path_line(
+        "zamtrux_decimate", gmmvi, step_s, launches, dev,
+        codename="ZAMTRUX", experiment="flagship", db_eviction="decimate",
+        capacity=st.capacity, dist_capacity=st.dist_capacity,
+        count_max=max(counts), count_end=counts[-1],
+        decimations=sum(b < a for a, b in zip(counts, counts[1:])),
+        dist_count_end=int(st.dist_count), elbo_start=elbo_start,
+        elbo_end=elbo_end, num_active=int(gmmvi.model.num_active),
+        compared_step=DECIMATE_COMPARED_STEP + 1,
+        one_step_bar=f"rtol {DIAG_RTOL} / atol {DIAG_ATOL}",
+        db_and_integers_worst=db_cmp["worst"],
+        db_and_integers_missed=db_cmp["missed"],
+        handed_to_kernels_worst=win_cmp["worst"],
+        handed_to_kernels_missed=win_cmp["missed"],
+        handed_to_kernels_leaves=sorted(windows["K"]),
+        pairs_worst=pair_cmp, slot_bar=SLOT_BAR,
+        active_slots=int(active.sum()), resolved_slots=int(resolved.sum()),
+        resolved_missed_by_kernels=missed, flips_against_float64=flips,
+        slot_worst={run: [float(x) for x in w[active]]
+                    for run, w in worst.items()})
+    if max(counts) > st.capacity:
+        raise AssertionError(f"the store held {max(counts)} > "
+                             f"{st.capacity} samples")
+    if not out["fevals"] > st.capacity or not out["decimations"]:
+        raise AssertionError(f"no decimation: {out['fevals']} written")
+    if not elbo_end > elbo_start:
+        raise AssertionError(f"zamtrux_decimate: the ELBO did not improve: "
+                             f"{elbo_start} -> {elbo_end}")
+    for name in ("density_pack", "densities", "background_logpdf",
+                 "more_grams"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the decimating "
+                                 "path")
+    for what, cmp in (("database and integer leaves", db_cmp),
+                      ("inputs handed to the kernels", win_cmp)):
+        if cmp["missed"]:
+            raise AssertionError(f"step {DECIMATE_COMPARED_STEP + 1}: the "
+                                 f"card's {what} differ from the CPU's in "
+                                 f"{cmp['missed']}: {cmp['ratios']}")
+    if missed:
+        raise AssertionError(f"step {DECIMATE_COMPARED_STEP + 1}: slots "
+                             f"{missed} resolved by float32 miss "
+                             f"{SLOT_BAR} bars through the kernels")
+    if resolved.sum() < MIN_RESOLVED_SHARE * active.sum():
+        raise AssertionError(f"step {DECIMATE_COMPARED_STEP + 1}: only "
+                             f"{int(resolved.sum())} of {int(active.sum())}"
+                             " slots resolved by float32")
+    return launches
+
+
+def gmm20_variant_phase(dev, path, captured, densities):
+    """The quick-start runner (``get_default_config("SAMTRON", "gmm20")``)
+    with ``num_prior_samples`` 1,000 (``gmm20_prior``: every step draws
+    1,000 prior samples, evaluates the target on them, and an add takes
+    them as candidates beside the reservoir's 16,384) or with
+    ``use_sample_database: False`` (``gmm20_nodb``: no reuse, add
+    candidates from the newest batch), ``iterate_and_log(n)`` for n =
+    0..299; B9's last inputs at each call size to ``captured``, B1's and
+    B2's to ``densities``.  Holds: finite metrics, a rising ELBO,
+    components grown by VIPS, B1-B3 and B9 launched (B4 with the
+    database), B9 at the candidates' count."""
+    from gmmvi_tpu_torch.configs import update_config
+    from gmmvi_tpu_torch.ops import mixture_logpdf as mops
+
+    over = ({"num_component_adapter_config": {"num_prior_samples": N_PRIOR}}
+            if path == "gmm20_prior" else {"use_sample_database": False})
+    runner = build_runner(dev, update_config(runner_config(), over))
+    g = runner.gmmvi
+    n_cand = (N_CANDIDATES + N_PRIOR if path == "gmm20_prior"
+              else min(N_CANDIDATES, g.state.db.capacity))
+    restore = [recording(captured, mops, "mixture_logpdf",
+                         key=lambda args: ("mixture_logpdf",
+                                           args[4].shape[0])),
+               *capture_density_inputs(densities, path)]
+    evals = []
+
+    def step(n):
+        out = runner.iterate_and_log(n)
+        if "-elbo" in out:
+            evals.append(dict(iteration=n, elbo=-out["-elbo"],
+                              num_components=out["num_components"],
+                              finite=all(math.isfinite(v)
+                                         for v in out.values()
+                                         if isinstance(v, (int, float)))))
+            emit({"phase": "runner_eval", "path": path, **evals[-1]})
+
+    step_s, launches = run_path(dev, g, GMM20_ITERS_12, step)
+    for undo in restore:
+        undo()
+    sizes = sorted(k[1] for k in captured if isinstance(k, tuple))
+    out = path_line(path, g, step_s, launches, dev, codename="SAMTRON",
+                    experiment="gmm20", entry="GmmviRunner.iterate_and_log",
+                    elbo_start=evals[0]["elbo"], elbo_end=evals[-1]["elbo"],
+                    num_active=int(g.model.num_active),
+                    kmax=g.model.max_components, b9_sizes=sizes,
+                    candidates=n_cand)
+    if not all(e["finite"] for e in evals):
+        raise AssertionError(f"{path}: a runner metric is not finite")
+    if not out["elbo_end"] > out["elbo_start"]:
+        raise AssertionError(f"{path}: the ELBO did not improve: {out}")
+    if not out["num_active"] > 1:
+        raise AssertionError(f"{path}: VIPS added no component")
+    kernels = ["density_pack", "densities", "tr_search", "mixture_logpdf"]
+    if path == "gmm20_prior":
+        kernels.append("background_logpdf")
+    elif launches["background_logpdf"]:
+        raise AssertionError(f"{path}: B4 launched without reuse")
+    for name in kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on {path}")
+    if n_cand not in sizes:
+        raise AssertionError(f"{path}: B9 never at the {n_cand} candidates: "
+                             f"{sizes}")
+    return launches
+
+
+def slice12_input_rows(captured_dec, captured_runner12) -> dict:
+    """B4 and B8 on the decimating path's last inputs and B9 on the gmm20
+    variants' (B1, B2 and B5-B7 go through ``density_path_rows`` and
+    ``large_d_input_rows``), against their plain versions at the kernel
+    phase's bars; fails on a miss.  Returns B4's rows by label."""
+    out = background_path_rows(captured_dec, "zamtrux_decimate")
+    row = measure_more(captured_dec["more_grams"])
+    emit({"phase": "kernel_on_main_path_inputs", "path": "zamtrux_decimate",
+          "name": "more_grams", **row})
+    if not row["ok"]:
+        raise AssertionError(f"more_grams disagrees on the decimating "
+                             f"path's inputs: {row}")
+    for path, caught in captured_runner12.items():
+        for key in sorted(k for k in caught if isinstance(k, tuple)):
+            row = measure_mixture_logpdf(caught[key])
+            emit({"phase": "kernel_on_main_path_inputs", "path": path,
+                  "name": f"mixture_logpdf[N={key[1]}]", **row})
+            if not row["ok"]:
+                raise AssertionError(f"mixture_logpdf disagrees on the "
+                                     f"{path} path's inputs: {row}")
+    return out
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the wine BNN seeds its batch order from hash(("bnn", seed)), as
@@ -3072,6 +3912,17 @@ def main() -> int:
                                           densities,
                                           captured_paper[experiment])
     by_path["wine"] = wine_phase(dev, captured_wine)
+    captured_newton: dict = {}
+    captured_dec: dict = {}
+    captured_runner12 = {"gmm20_prior": {}, "gmm20_nodb": {}}
+    by_path["stm300_newton"] = stm300_newton_phase(dev, captured_newton)
+    for path in SEARCH_PATHS_12:
+        by_path[path] = flagship_search_phase(dev, path, densities)
+    by_path["stm1024"] = stm1024_phase(dev)
+    by_path["zamtrux_decimate"] = zamtrux_decimate_phase(dev, captured_dec,
+                                                         densities)
+    for path, caught in captured_runner12.items():
+        by_path[path] = gmm20_variant_phase(dev, path, caught, densities)
     on_paths = {**density_path_rows(densities),
                 "tr_search": search_rows(searches),
                 "background_logpdf": {
@@ -3082,9 +3933,12 @@ def main() -> int:
         for name, labels in paper_input_rows(caught, experiment).items():
             on_paths[name].update(labels)
     main_path_input_rows(captured, searches["ZAMTRUX"])
+    on_paths["background_logpdf"].update(
+        slice12_input_rows(captured_dec, captured_runner12))
     for path, large in (("stm300", captured_large),
                         ("SEPYFUX", captured_sepyfux),
-                        ("wine", captured_wine)):
+                        ("wine", captured_wine),
+                        ("stm300_newton", captured_newton)):
         for name, labels in large_d_input_rows(large, path).items():
             on_paths.setdefault(name, {}).update(labels)
     runner_input_rows(captured_runner)

@@ -10,7 +10,9 @@ card unless given ``device="cpu"``.
 
 :func:`state_from_numpy` and :func:`state_to_numpy` carry a training state
 across as numpy arrays keyed by the JAX package's pytree paths (as its
-checkpoints name them), so the two packages can be compared leaf by leaf.
+checkpoints name them), so the two packages can be compared leaf by leaf;
+a decimating database (``tpu.db_eviction: decimate``) keeps the JAX
+package's ``DecimatingDbState`` paths.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.optimization.component_adaptation import AdaptationState
 from gmmvi_tpu_torch.optimization.gmmvi import GMMVI, StepDraws, TrainState
 from gmmvi_tpu_torch.optimization.sample_db import SampleDbState
+from gmmvi_tpu_torch.optimization.sample_db_decimate import DecimatingDbState
 from gmmvi_tpu_torch.optimization.stepsize_adapters import \
     WeightStepsizeState
 from gmmvi_tpu_torch.runner import GmmviRunner
@@ -39,11 +42,23 @@ def _tensor_fields(cls):
             if f.type in ("torch.Tensor", torch.Tensor)]
 
 
+def _part_classes(state: Optional[TrainState] = None,
+                  named: Optional[Dict[str, np.ndarray]] = None):
+    """The class of each part of ``state`` (or of the state whose leaves
+    are ``named``): the database's is the decimating one where it has a
+    ``count``."""
+    if state is not None:
+        return {part: type(getattr(state, part)) for part in _PARTS}
+    decimating = named is not None and "db.count" in named
+    return {**_PARTS, "db": DecimatingDbState if decimating
+            else SampleDbState}
+
+
 def state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
     """Every tensor leaf of ``state`` as a numpy array keyed by its path
     (``model.means``, ``db.write_pos``, ..., ``num_updates``)."""
     named = {}
-    for part, cls in _PARTS.items():
+    for part, cls in _part_classes(state).items():
         obj = getattr(state, part)
         for name in _tensor_fields(cls):
             named[f"{part}.{name}"] = getattr(obj, name).detach().cpu(
@@ -61,13 +76,14 @@ def state_from_numpy(named: Dict[str, np.ndarray], device="cuda",
     initial stepsize and regularizer) come from ``like`` when given, else
     from the dataclass defaults."""
     dev = resolve_device(device)
-    missing = [f"{part}.{name}" for part, cls in _PARTS.items()
+    classes = _part_classes(like, named)
+    missing = [f"{part}.{name}" for part, cls in classes.items()
                for name in _tensor_fields(cls)
                if f"{part}.{name}" not in named]
     if missing or "num_updates" not in named:
         raise KeyError(f"missing state leaves: {missing or ['num_updates']}")
     parts = {}
-    for part, cls in _PARTS.items():
+    for part, cls in classes.items():
         kw = {name: torch.as_tensor(np.array(named[f"{part}.{name}"]),
                                     device=dev)
               for name in _tensor_fields(cls)}

@@ -13,7 +13,10 @@ A diagonal model (``diagonal=True``) keeps square roots of the variances
 ``[Kmax, D]`` as its factors (ones in inactive slots) and their reciprocals
 as the inverses.  Its densities and gradients are plain torch, as the JAX
 package's are (its kernels take full covariances only), with the
-``[Kmax, N, D]`` intermediates made a few components at a time.
+``[Kmax, N, D]`` intermediates made a few components at a time.  So are a
+full-covariance model's above D = 512, where the JAX package takes its XLA
+chain (:func:`xla_densities`); below, the kernels B1/B2 (D <= 128) and
+B5/B6 compute them on the card.
 """
 from __future__ import annotations
 
@@ -202,13 +205,49 @@ def _mixture_of(state: GmmState, comp: torch.Tensor) -> torch.Tensor:
                             mask=state.mask[:, None], dim=0)
 
 
+def xla_densities(means, inv_chols, log_weights, log_dets, samples,
+                  want_grads: bool = False):
+    """The JAX package's XLA chain for full covariances at any D (its route
+    where no kernel takes D): ``(comp [K, N], model [N])``, with
+    ``want_grads`` also the mixture gradient ``[N, D] = -sum_k r_k L_k^{-T}
+    L_k^{-1} (x - mu_k)``, over the rows with a finite log weight.  The
+    ``[k, N, D]`` whitened differences are made a few components at a time
+    (:func:`diag_chunks`), twice with ``want_grads``, so no more than two
+    slabs are alive at once."""
+    k, d = means.shape
+    n = samples.shape[0]
+    chunks = diag_chunks(k, n, d)
+
+    def whitened(lo, hi):
+        return torch.einsum("kij,knj->kni", inv_chols[lo:hi],
+                            samples[None, :, :] - means[lo:hi, None, :])
+
+    maha = torch.cat([-0.5 * torch.sum(torch.square(whitened(lo, hi)), -1)
+                      for lo, hi in chunks])
+    comp = maha + (-log_dets - 0.5 * d * LOG_2PI)[:, None]
+    mask = (log_weights > NEG_INF)[:, None]
+    weighted = comp + log_weights[:, None]
+    model = masked_logsumexp(weighted, mask=mask, dim=0)
+    if not want_grads:
+        return comp, model
+    resp = torch.where(mask, torch.exp(weighted - model[None, :]), 0.0)
+    grads = torch.zeros_like(samples)
+    for lo, hi in chunks:
+        ptd = torch.einsum("kji,knj->kni", inv_chols[lo:hi],
+                           whitened(lo, hi))
+        grads = grads - torch.einsum("kn,knd->nd", resp[lo:hi], ptd)
+    return comp, model, grads
+
+
 def log_density(state: GmmState, samples: torch.Tensor) -> torch.Tensor:
     """``[N]`` mixture log density: kernel B9 on the card (B5's mixture
     output at D > 128); on the CPU its plain version, the arithmetic of
     :func:`component_log_densities` and ``masked_logsumexp``.  Plain torch
-    for a diagonal model."""
+    for a diagonal model and above D = 512."""
     if state.diagonal:
         return _mixture_of(state, component_log_densities(state, samples))
+    if _xla_d(state):
+        return xla_densities(*_kernel_args(state), samples)[1]
     return mixture_ops.mixture_logpdf(*_kernel_args(state), samples)
 
 
@@ -248,6 +287,12 @@ def _large_d(state: GmmState) -> bool:
     return state.num_dimensions > density_ops.MAX_D
 
 
+def _xla_d(state: GmmState) -> bool:
+    """D > 512: no kernel takes it, in the port as in the JAX package; the
+    densities take the XLA chain (:func:`xla_densities`)."""
+    return state.num_dimensions > density_large_ops.MAX_D
+
+
 def component_log_densities_fast(state: GmmState, samples: torch.Tensor
                                  ) -> torch.Tensor:
     """:func:`component_log_densities` in one pass through kernel B2 (B5 at
@@ -258,11 +303,12 @@ def component_log_densities_fast(state: GmmState, samples: torch.Tensor
 def log_densities_also_individual(state: GmmState, samples: torch.Tensor):
     """(model log densities ``[N]``, component log densities ``[Kmax, N]``)
     in one pass: kernel B2 (B5 at D > 128) on the card; plain torch for a
-    diagonal model."""
+    diagonal model and above D = 512."""
     if state.diagonal:
         comp = component_log_densities(state, samples)
         return _mixture_of(state, comp), comp
-    fn = (density_large_ops.densities_large if _large_d(state)
+    fn = (xla_densities if _xla_d(state) else
+          density_large_ops.densities_large if _large_d(state)
           else density_ops.densities)
     comp, model = fn(*_kernel_args(state), samples)
     return model, comp
@@ -282,9 +328,14 @@ class DensityPack:
 def density_pack(state: GmmState, samples: torch.Tensor) -> DensityPack:
     """Component densities, mixture density and analytic mixture gradient
     ``-sum_k r_k(x) Sigma_k^{-1}(x - mu_k)`` in one pass: kernel B1 on the
-    card (B5 then B6 at D > 128); plain torch for a diagonal model."""
+    card (B5 then B6 at D > 128); plain torch for a diagonal model and
+    above D = 512."""
     if state.diagonal:
         return _diag_density_pack(state, samples)
+    if _xla_d(state):
+        comp, model, grads = xla_densities(*_kernel_args(state), samples,
+                                           want_grads=True)
+        return DensityPack(comp, model, grads)
     fn = (density_large_ops.density_pack_large if _large_d(state)
           else density_ops.density_pack)
     comp, model, grads = fn(*_kernel_args(state), samples)
@@ -337,6 +388,47 @@ def sample_from_components(state: GmmState, eps: torch.Tensor
         return state.means[:, None, :] + state.chols[:, None, :] * eps
     return state.means[:, None, :] + torch.einsum("kij,knj->kni", state.chols,
                                                   eps)
+
+
+def sample_from_components_shuffled(
+        state: GmmState, samples_per_component: int,
+        generator: Optional[torch.Generator] = None,
+        eps: Optional[torch.Tensor] = None,
+        uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[Kmax n, D]`` draws, ``n = samples_per_component`` from every slot,
+    flattened and shuffled: the active slots' draws first, in the stable
+    order of ``uniform`` ``[Kmax n]`` (uniform in [0, 1)), then the
+    inactive slots' in slot order.  ``eps`` (standard normal ``[Kmax, n,
+    D]``) and ``uniform`` are drawn from ``generator`` unless given."""
+    kmax, d = state.max_components, state.num_dimensions
+    n = samples_per_component
+    if eps is None:
+        eps = torch.randn((kmax, n, d), generator=generator,
+                          device=state.device)
+    if uniform is None:
+        uniform = torch.rand((kmax * n,), generator=generator,
+                             device=state.device)
+    flat = sample_from_components(state, eps).reshape(-1, d)
+    valid = torch.repeat_interleave(state.mask, n)
+    return flat[torch.argsort(torch.where(valid, uniform, 2.0), stable=True)]
+
+
+def component_log_density_and_grad(state: GmmState, index: int,
+                                   samples: torch.Tensor):
+    """(log density ``[N]``, gradient ``[N, D] = -Sigma_i^{-1}(x -
+    mu_i)``) of component ``index`` alone, analytically."""
+    diffs = samples - state.means[index][None, :]
+    inv = state.inv_chols[index]
+    if state.diagonal:
+        y = inv[None, :] * diffs
+        ptd = inv[None, :] * y
+    else:
+        y = diffs @ inv.mT
+        ptd = y @ inv
+    d = state.num_dimensions
+    ld = -0.5 * torch.sum(y * y, -1) \
+        - chol_log_det(state.chols[index], state.diagonal) - 0.5 * d * LOG_2PI
+    return ld, -ptd
 
 
 def sample_categorical(state: GmmState, num_samples: int,

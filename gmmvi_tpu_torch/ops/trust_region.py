@@ -24,7 +24,10 @@ P_k get F32_MAX, the rejection signal the bracket search expects.
 :func:`tr_search` runs the reference's log-space bisection for every
 component's stepsize to its end (:func:`bracket_search` around the KL), in
 one launch on the card: one block per component, since a component's
-bracket depends on its own KL alone.
+bracket depends on its own KL alone.  :func:`newton_search` is the JAX
+package's safeguarded Newton search, a host loop like
+:func:`bracket_search`, and :func:`grid_search` its two batched grid
+passes (JAX runs both in XLA: they have no kernel).
 
 On a CPU tensor :func:`tr_kl` and :func:`tr_search` run their plain
 PyTorch versions; on a CUDA tensor they launch their kernels or raise.
@@ -173,6 +176,84 @@ def bracket_search(kl_eval: Callable, kl_bound, lower0, upper0,
     lower = torch.where(upper_ok, upper, lower)
     return (torch.exp(lower), torch.exp(upper),
             each if per_component_trips else trips)
+
+
+def newton_search(kl_grad_eval: Callable, kl_bound, lower0, upper0,
+                  warm_t, active: Optional[torch.Tensor] = None):
+    """The JAX package's safeguarded Newton search (``_newton_search``) for
+    all components in lockstep on the host: the contract of
+    :func:`bracket_search` (the largest eta with ``|KL - bound| < 0.1
+    bound``, else the bracket-collapse fallback, at most 1000 trips), but
+    each trip evaluates KL and dKL/d(log eta) at the current point ``t``
+    (``kl_grad_eval``: etas [K] -> (KLs, slopes) [K]) and takes a Newton
+    step on ``KL(t) - bound``, clipped into the sign bracket (bisection
+    where the step leaves it, the slope is not negative or the point is
+    infeasible).  ``warm_t`` [K] is the starting log eta (the bracket's
+    midpoint where it is not finite).  A component that stops keeps its
+    carry, as JAX's ``while_loop`` under ``vmap`` keeps it.  Returns
+    ``(exp(lower), exp(upper), trips)``."""
+    k = lower0.shape[0]
+    dev = lower0.device
+    t = torch.where(torch.isfinite(warm_t), warm_t, 0.5 * (lower0 + upper0))
+    t = torch.clamp(t, min=lower0, max=upper0)
+    lower, upper = lower0, upper0
+    upper_ok = torch.zeros((k,), dtype=torch.bool, device=dev)
+    done = (torch.zeros((k,), dtype=torch.bool, device=dev)
+            if active is None else torch.logical_not(active))
+    trips = 0
+    while trips < MAX_TRIPS and not bool(done.all()):
+        act = torch.logical_not(done)
+        kl, dkl = kl_grad_eval(torch.exp(t))
+        good = torch.abs(kl_bound - kl) < 1e-1 * kl_bound
+        go_low = kl_bound > kl
+        new_lower = torch.where(good, t, torch.where(go_low, lower, t))
+        new_upper = torch.where(good, t, torch.where(go_low, t, upper))
+        new_upper_ok = torch.where(good, upper_ok, upper_ok | go_low)
+        width = torch.exp(new_upper) - torch.exp(new_lower)
+        t_newton = t - (kl - kl_bound) / dkl
+        inside = (t_newton > new_lower) & (t_newton < new_upper)
+        ok = torch.isfinite(t_newton) & (dkl < 0.0) & inside
+        t_next = torch.where(ok, t_newton, 0.5 * (new_lower + new_upper))
+        lower = torch.where(act, new_lower, lower)
+        upper = torch.where(act, new_upper, upper)
+        upper_ok = torch.where(act, new_upper_ok, upper_ok)
+        t = torch.where(act, t_next, t)
+        done = torch.where(act, good | (width < 1e-1), done)
+        trips += 1
+    lower = torch.where(upper_ok, upper, lower)
+    return torch.exp(lower), torch.exp(upper), trips
+
+
+def _linspace(start, stop, num: int) -> torch.Tensor:
+    """``[num, K]`` points from ``start`` to ``stop`` [K] as ``jnp.linspace``
+    makes them (``start (1 - i/(num-1)) + stop i/(num-1)``, the last one
+    ``stop`` itself)."""
+    div = num - 1
+    step = (torch.arange(div, dtype=start.dtype, device=start.device)
+            / div)[:, None]
+    return torch.cat([start[None] * (1 - step) + stop[None] * step,
+                      stop[None]])
+
+
+def grid_search(kl_eval, kl_bound, lower0, upper0, grid_size: int):
+    """The JAX package's two-level grid search (``_tr_grid_search``) for
+    every component: KL at ``grid_size`` log etas from ``lower0`` to
+    ``upper0``, then at as many between the grid point before the first
+    feasible one (KL <= bound; NaN is not) and that point; the first
+    feasible point of the second pass.  Returns ``(eta, any feasible in
+    the first pass)``; ``kl_eval`` maps etas [K] to KLs [K]."""
+    def first_feasible(grid):
+        feas = torch.stack([kl_eval(torch.exp(g)) for g in grid]) <= kl_bound
+        return feas.any(0), torch.argmax(feas.to(torch.int8), dim=0)
+
+    g1 = _linspace(lower0, upper0, grid_size)
+    any1, idx1 = first_feasible(g1)
+    lo = g1.gather(0, torch.clamp(idx1 - 1, min=0)[None])[0]
+    hi = torch.where(any1, g1.gather(0, idx1[None])[0], upper0)
+    g2 = _linspace(lo, hi, grid_size)
+    any2, idx2 = first_feasible(g2)
+    eta_log = torch.where(any2, g2.gather(0, idx2[None])[0], hi)
+    return torch.exp(eta_log), any1
 
 
 def _check_search(inp: TrKlInputs, kl_bound, lower0, upper0, active):

@@ -7,8 +7,9 @@ model and meta-state with one permutation.  Whether a delete or an add is
 due at all follows from the iteration number, a host integer; whether one
 takes effect depends on device values (a bad component, room for another),
 and the result is selected with ``torch.where`` so no device value is read
-on the host.  The random draws of an add (the reservoir permutation and the
-entropy mixing coefficient) come in as tensors.
+on the host.  The random draws of an add (the candidates' permutation or
+uniforms and the entropy mixing coefficient) come in as tensors, and so do
+the step's prior samples with their target log densities, when configured.
 """
 from __future__ import annotations
 
@@ -25,8 +26,6 @@ from gmmvi_tpu_torch.models import gmm as gmm_ops
 from gmmvi_tpu_torch.models import meta as meta_ops
 from gmmvi_tpu_torch.models.gmm import LOG_2PI, GmmState
 from gmmvi_tpu_torch.models.meta import MetaState
-from gmmvi_tpu_torch.optimization import sample_db as db_ops
-from gmmvi_tpu_torch.optimization.sample_db import SampleDbState
 from gmmvi_tpu_torch.ops.stable import F32_MIN
 
 
@@ -119,18 +118,30 @@ def diagonal_gaussian_entropy(cov_diag) -> float:
 
 
 def add_new_component(model: GmmState, meta: MetaState,
-                      adapt: AdaptationState, db: SampleDbState,
-                      cfg: VipsConfig, db_perm: torch.Tensor,
-                      add_a: torch.Tensor):
-    """Add one component at the most promising reservoir candidate.
+                      adapt: AdaptationState, db, cfg: VipsConfig,
+                      db_draw: torch.Tensor, add_a: torch.Tensor,
+                      prior_samples: Optional[torch.Tensor] = None,
+                      prior_lnpdfs: Optional[torch.Tensor] = None):
+    """Add one component at the most promising candidate.
 
-    ``db_perm`` picks the candidates (the first entries of a random
-    permutation of the reservoir slots) and ``add_a`` (uniform in [0, 1))
-    mixes the desired entropy between the model's average entropy and the
-    prior's.  A candidate's reward is ``target - max(max_model_ld -
-    threshold, model_ld)`` with a threshold that cycles through the list;
-    the new covariance is isotropic with the desired entropy."""
-    samples, lnpdfs, valid = db_ops.get_random_samples(db, db_perm)
+    ``db_draw`` picks the database's candidates
+    (the database's ``get_random_samples``); ``prior_samples`` ``[P, D]`` with
+    their target log densities join them and count as function
+    evaluations.  ``add_a`` (uniform in [0, 1)) mixes the desired entropy
+    between the model's average entropy and the prior's.  A candidate's
+    reward is ``target - max(max_model_ld - threshold, model_ld)`` with a
+    threshold that cycles through the list; the new covariance is
+    isotropic with the desired entropy."""
+    samples, lnpdfs, valid = db.get_random_samples(
+        db_draw, cfg.num_database_samples)
+    if prior_samples is not None:
+        samples = torch.cat([samples, prior_samples])
+        lnpdfs = torch.cat([lnpdfs, prior_lnpdfs])
+        valid = torch.cat([valid, torch.ones(prior_samples.shape[0],
+                                             dtype=torch.bool,
+                                             device=valid.device)])
+        db = db.replace(num_samples_written=db.num_samples_written
+                        + prior_samples.shape[0])
     thresholds = torch.tensor(cfg.thresholds_for_add_heuristic,
                               dtype=torch.float32, device=model.device)
     t_idx = torch.remainder(adapt.num_calls_to_add_heuristic,
@@ -166,23 +177,30 @@ def add_new_component(model: GmmState, meta: MetaState,
 
 
 def adapt_number_of_components(model: GmmState, meta: MetaState,
-                               adapt: AdaptationState, db: SampleDbState,
-                               cfg: VipsConfig, iteration: int,
-                               db_perm: Optional[torch.Tensor],
-                               add_a: Optional[torch.Tensor]):
+                               adapt: AdaptationState, db, cfg: VipsConfig,
+                               iteration: int,
+                               db_draw: Optional[torch.Tensor],
+                               add_a: Optional[torch.Tensor],
+                               prior_samples: Optional[torch.Tensor] = None,
+                               prior_lnpdfs: Optional[torch.Tensor] = None):
     """Delete check once ``iteration > del_iters``; an add every
-    ``add_iters`` iterations while below ``max_components``.  ``db_perm``
-    and ``add_a`` are needed only when :func:`add_is_due`."""
+    ``add_iters`` iterations while below ``max_components``.  ``db_draw``
+    and ``add_a`` are needed only when :func:`add_is_due`; the prior
+    samples count as function evaluations only where an add takes
+    place."""
     if iteration > cfg.del_iters:
         model, meta = delete_bad_components(model, meta, cfg)
     if add_is_due(cfg, iteration):
         should_add = ((model.num_active < cfg.max_components)
                       & (model.num_active < model.max_components))
-        new_model, new_meta, new_adapt, db = add_new_component(
-            model, meta, adapt, db, cfg, db_perm, add_a)
+        new_model, new_meta, new_adapt, new_db = add_new_component(
+            model, meta, adapt, db, cfg, db_draw, add_a, prior_samples,
+            prior_lnpdfs)
         model = _select(should_add, new_model, model)
         meta = _select(should_add, new_meta, meta)
         adapt = _select(should_add, new_adapt, adapt)
+        db = db.replace(num_samples_written=torch.where(
+            should_add, new_db.num_samples_written, db.num_samples_written))
     return model, meta, adapt, db
 
 

@@ -24,8 +24,19 @@ accepted update is rebuilt at the found eta from one Cholesky of the
 flipped precision.  Failures are success masks: a failed component keeps
 its parameters.  A diagonal model's updates are elementwise, and its
 search runs the same host loop around the elementwise KL
-(:func:`_tr_kl_diag`).  The searches other than ``bracket`` are not ported
-yet.
+(:func:`_tr_kl_diag`).
+
+The other searches of ``tpu.trust_region_search`` are the JAX package's
+vmapped XLA routes, in plain torch batched over the slots: ``newton``
+(full covariances at every D; :func:`~gmmvi_tpu_torch.ops.trust_region.
+newton_search` around the whitened KL and its slope in log eta,
+:func:`_tr_kl_whitened_grad`, cold-started at the asymptotic root),
+``grid`` (two batched passes of ``grid_size`` log-spaced etas around the
+direct KL, or the diagonal one; the smallest feasible eta) and
+``bracket-eigen`` (the bracket around the KL in the eigenbasis of the
+whitened curvature, elementwise per trip, and its own rebuild).  A
+diagonal model takes the bracket for ``newton`` and ``bracket-eigen``, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,8 +49,11 @@ from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.ops.blocked_linalg import tril_inverse
 from gmmvi_tpu_torch.ops.stable import F32_MAX
 from gmmvi_tpu_torch.ops.trust_region import MAX_D as TR_KERNEL_MAX_D
-from gmmvi_tpu_torch.ops.trust_region import (bracket_search,
+from gmmvi_tpu_torch.ops.trust_region import (bracket_search, grid_search,
+                                              newton_search,
                                               prepare_tr_kl_inputs, tr_search)
+
+SEARCHES = ("bracket", "newton", "grid", "bracket-eigen")
 
 
 class ComponentUpdateResult(NamedTuple):
@@ -258,6 +272,132 @@ def _tr_kl_whitened(etas, m_w, c, b1) -> torch.Tensor:
     return torch.where(bad, F32_MAX, kl)
 
 
+def _tr_kl_whitened_grad(etas, m_w, c, b1):
+    """KL [K] and dKL/d(log eta) [K] from one factorization (the Newton
+    trip): with ``S = I + M/eta``, ``q = c - S^{-1}(c + b1/eta)``,
+    ``dKL/dt = 0.5 (2 tr S^{-1} - D - ||S^{-1}||_F^2) - q^T S^{-1} q``.
+    F32_MAX and 0 where S is not positive definite."""
+    d = c.shape[-1]
+    eye = torch.eye(d, dtype=m_w.dtype, device=m_w.device)
+    s = m_w / etas[:, None, None] + eye
+    lc, info = torch.linalg.cholesky_ex(0.5 * (s + s.mT))
+    bad = info != 0
+    lc = torch.where(bad[:, None, None], eye, lc)
+    logdet_s = 2.0 * torch.sum(torch.log(torch.diagonal(lc, dim1=-2,
+                                                        dim2=-1)), -1)
+    w = tril_inverse(lc)
+    sinv = w.mT @ w
+    t1 = torch.diagonal(sinv, dim1=-2, dim2=-1).sum(-1)
+    t2 = torch.sum(sinv * sinv, dim=(-2, -1))
+    z = torch.einsum("kij,kj->ki", sinv, c + b1 / etas[:, None])
+    q = c - z
+    kl = 0.5 * (logdet_s + t1 - d + torch.sum(q * q, -1))
+    dkl = 0.5 * (2.0 * t1 - d - t2) - torch.einsum("ki,kij,kj->k", q, sinv,
+                                                   q)
+    return torch.where(bad, F32_MAX, kl), torch.where(bad, 0.0, dkl)
+
+
+def _newton_start(m_w, c, b1, stepsizes, last_etas):
+    """The Newton search's first log eta: the warm start ``log |last eta|``,
+    or cold ``0.5 (log C - log eps)`` with ``KL ~ C / eta^2``, ``C = 0.25
+    ||M||_F^2 + 0.5 ||M c - b1||^2``."""
+    c_asym = 0.25 * torch.sum(m_w * m_w, dim=(-2, -1)) + 0.5 * torch.sum(
+        torch.square(torch.einsum("kij,kj->ki", m_w, c) - b1), -1)
+    t_guess = 0.5 * (torch.log(c_asym + 1e-30) - torch.log(stepsizes))
+    return torch.where(last_etas < 0, t_guess,
+                       torch.log(torch.abs(last_etas) + 1e-30))
+
+
+def _tr_kl_direct(eta, old_lin, old_prec, old_inv_chol, reward_lin,
+                  reward_quad, kl_const, old_mean) -> torch.Tensor:
+    """KL [K] at etas [K] in the direct form (the JAX package's
+    ``_tr_kl_full_trip``: the interpolated precision's Cholesky, its
+    explicit inverse for the mean and the trace); F32_MAX where that
+    precision is not positive definite."""
+    d = old_mean.shape[-1]
+    e2, e3 = eta[:, None], eta[:, None, None]
+    new_lin = (e2 * old_lin + reward_lin) / e2
+    new_prec = (e3 * old_prec + reward_quad) / e3
+    chol_p, info = torch.linalg.cholesky_ex(0.5 * (new_prec + new_prec.mT))
+    bad = info != 0
+    eye = torch.eye(d, dtype=chol_p.dtype, device=chol_p.device)
+    chol_p = torch.where(bad[:, None, None], eye, chol_p)
+    new_logdet = -2.0 * torch.sum(torch.log(torch.diagonal(
+        chol_p, dim1=-2, dim2=-1)), -1)
+    w = tril_inverse(chol_p)
+    new_mean = torch.einsum("kji,kj->ki", w,
+                            torch.einsum("kij,kj->ki", w, new_lin))
+    half = w @ old_inv_chol.mT
+    od = torch.einsum("kij,kj->ki", old_inv_chol, old_mean - new_mean)
+    kl = 0.5 * (kl_const - new_logdet + torch.sum(half * half, dim=(-2, -1))
+                + torch.sum(od * od, -1))
+    return torch.where(bad, F32_MAX, kl)
+
+
+def _tr_kl_eigen(eta, lam, c, b):
+    """KL [K] at etas [K] in the eigenbasis of the whitened curvature,
+    elementwise: ``0.5 [sum log1p(lam/eta) - sum lam/(eta + lam) + sum
+    ((lam c - b)/(eta + lam))^2]``; F32_MAX where some ``eta + lam <= 0``
+    (the interpolated precision is not positive definite)."""
+    e = eta[:, None]
+    denom = e + lam
+    bad = ~torch.all(denom > 0.0, dim=-1)
+    safe = torch.where(bad[:, None], 1.0, denom)
+    lam_safe = torch.where(bad[:, None], 0.0, lam)
+    kl = 0.5 * (torch.sum(torch.log1p(lam_safe / e), -1)
+                - torch.sum(lam_safe / safe, -1)
+                + torch.sum(torch.square((lam_safe * c - b) / safe), -1))
+    return torch.where(bad, F32_MAX, kl)
+
+
+def _trust_region_update_eigen(model: GmmState, meta: MetaState,
+                               reward_lin, reward_quad, stepsizes,
+                               temperature, lower0, upper0
+                               ) -> ComponentUpdateResult:
+    """``bracket-eigen`` (the JAX package's spectral branch of
+    ``_tr_update_one``): ``L^T R L = U diag(lam) U^T`` once per step, the
+    bracket around :func:`_tr_kl_eigen`, then the rebuild at the accepted
+    eta: ``mu' = L U m~`` with ``m~ = (eta c + b)/(eta + lam)``, ``Sigma' =
+    (L U) diag(eta/(eta + lam)) (L U)^T``, its Cholesky and triangular
+    inverse.  A component fails where the search did not converge, the KL
+    is F32_MAX, some ``eta + lam <= 0`` or the new Cholesky has a NaN."""
+    means, chols, inv_chols = model.means, model.chols, model.inv_chols
+    d = model.num_dimensions
+    rw = chols.mT @ reward_quad @ chols
+    lam, u = torch.linalg.eigh(0.5 * (rw + rw.mT))
+    zm = torch.linalg.solve_triangular(chols, means[:, :, None],
+                                       upper=False)[:, :, 0]
+    c = torch.einsum("kji,kj->ki", u, zm)
+    b = torch.einsum("kji,kj->ki", u,
+                     torch.einsum("kji,kj->ki", chols, reward_lin))
+    exp_lower, exp_upper, _ = bracket_search(
+        lambda etas: _tr_kl_eigen(etas, lam, c, b), stepsizes, lower0,
+        upper0, active=model.mask)
+    eta = torch.clamp(exp_lower, min=temperature)
+    kl = _tr_kl_eigen(eta, lam, c, b)
+    denom = eta[:, None] + lam
+    pd_ok = torch.all(denom > 0.0, dim=-1)
+    safe = torch.where(pd_ok[:, None], denom, 1.0)
+    m_tilde = (eta[:, None] * c + b) / safe
+    new_mean = torch.einsum("kij,kj->ki", chols,
+                            torch.einsum("kij,kj->ki", u, m_tilde))
+    half = (chols @ u) * torch.sqrt(torch.clamp(eta[:, None] / safe,
+                                                min=0.0))[:, None, :]
+    new_chol = _cholesky_or_nan(half @ half.mT)
+    success = ((exp_lower == exp_upper) & (kl < F32_MAX) & pd_ok
+               & ~torch.isnan(new_chol).any(dim=(-2, -1)))
+    new_chol = torch.where(success[:, None, None], new_chol, chols)
+    eye = torch.eye(d, dtype=chols.dtype, device=chols.device)
+    new_inv_chol = torch.linalg.solve_triangular(
+        new_chol, eye.expand_as(new_chol), upper=False).contiguous()
+    means, chols, inv_chols = _select_update(
+        model, success, torch.where(success[:, None], new_mean, means),
+        new_chol, new_inv_chol)
+    return _finish_update(model, meta, means, chols, success,
+                          etas=torch.where(success, eta, -1.0),
+                          new_inv_chols=inv_chols)
+
+
 def _tr_kl_diag(eta, old_lin, old_prec, old_inv_chol, reward_lin,
                 reward_quad, old_mean):
     """KL of the diagonal interpolation at etas [K] (the reference's
@@ -279,11 +419,12 @@ def _tr_kl_diag(eta, old_lin, old_prec, old_inv_chol, reward_lin,
 
 def _trust_region_update_diag(model: GmmState, meta: MetaState,
                               hessians_neg, grads_neg, stepsizes,
-                              temperature, lower0, upper0
+                              temperature, lower0, upper0, grid_size=None
                               ) -> ComponentUpdateResult:
     """The trust-region step of a diagonal model: the reference's bracket
     search around :func:`_tr_kl_diag` in lockstep over the slots (one flag
-    read per trip), then the parameters at the accepted eta."""
+    read per trip), or with ``grid_size`` the grid search, then the
+    parameters at the accepted eta."""
     means, inv_chols = model.means, model.inv_chols
     reward_lin = hessians_neg * means - grads_neg
     old_prec, old_lin = _old_canonical(model)
@@ -292,14 +433,19 @@ def _trust_region_update_diag(model: GmmState, meta: MetaState,
         return _tr_kl_diag(etas, old_lin, old_prec, inv_chols, reward_lin,
                            hessians_neg, means)
 
-    exp_lower, exp_upper, _ = bracket_search(
-        lambda etas: kl_at(etas)[0], stepsizes, lower0, upper0,
-        active=model.mask)
-    eta = torch.clamp(exp_lower, min=temperature)
+    if grid_size is not None:
+        eta0, success = grid_search(lambda etas: kl_at(etas)[0], stepsizes,
+                                    lower0, upper0, grid_size)
+        eta = torch.clamp(eta0, min=temperature)
+    else:
+        exp_lower, exp_upper, _ = bracket_search(
+            lambda etas: kl_at(etas)[0], stepsizes, lower0, upper0,
+            active=model.mask)
+        eta = torch.clamp(exp_lower, min=temperature)
+        success = exp_lower == exp_upper
     kl, new_means, inv_chol_p = kl_at(eta)
     new_chols = torch.sqrt(torch.square(inv_chol_p))
-    success = (exp_lower == exp_upper) & (kl < F32_MAX) \
-        & ~torch.isnan(new_chols).any(dim=-1)
+    success = success & (kl < F32_MAX) & ~torch.isnan(new_chols).any(dim=-1)
     sel = (success & model.mask)[:, None]
     return _finish_update(
         model, meta, torch.where(sel, new_means, means),
@@ -311,13 +457,14 @@ def _trust_region_update_diag(model: GmmState, meta: MetaState,
 def trust_region_update(model: GmmState, meta: MetaState,
                         hessians_neg: torch.Tensor, grads_neg: torch.Tensor,
                         stepsizes: torch.Tensor, temperature: float = 1.0,
-                        search: str = "bracket") -> ComponentUpdateResult:
+                        search: str = "bracket", grid_size: int = 32
+                        ) -> ComponentUpdateResult:
     """KL-constrained natural-gradient step for every component; the
-    stepsize is the trust-region bound epsilon."""
-    if search != "bracket":
-        raise NotImplementedError(
-            f"trust-region search '{search}' is not ported yet (the port "
-            "has 'bracket')")
+    stepsize is the trust-region bound epsilon.  ``search`` is one of
+    :data:`SEARCHES` (``tpu.trust_region_search``), ``grid_size`` the grid
+    search's points per pass."""
+    if search not in SEARCHES:
+        raise ValueError(f"unknown trust-region search {search!r}")
     # the warm-started bracket in log space
     last = meta.last_etas
     no_warm = last < 0
@@ -326,28 +473,48 @@ def trust_region_update(model: GmmState, meta: MetaState,
                                                      min=0.0))
     upper0 = torch.where(no_warm, 80.0, log_last + 3.0)
     if model.diagonal:
-        return _trust_region_update_diag(model, meta, hessians_neg,
-                                         grads_neg, stepsizes, temperature,
-                                         lower0, upper0)
+        return _trust_region_update_diag(
+            model, meta, hessians_neg, grads_neg, stepsizes, temperature,
+            lower0, upper0, grid_size if search == "grid" else None)
     means, chols, inv_chols = model.means, model.chols, model.inv_chols
     reward_lin = torch.einsum("kij,kj->ki", hessians_neg, means) - grads_neg
     # the search and the rebuild see the symmetric part of the quadratic
     # term, as jnp.linalg.cholesky does (exact where it is symmetric; the
     # standard-IW Stein Hessian is not)
     reward_quad = 0.5 * (hessians_neg + hessians_neg.mT)
+    if search == "bracket-eigen":
+        return _trust_region_update_eigen(model, meta, reward_lin,
+                                          reward_quad, stepsizes,
+                                          temperature, lower0, upper0)
     inp = prepare_tr_kl_inputs(means, chols, inv_chols, reward_lin,
                                reward_quad)
-    if model.num_dimensions <= TR_KERNEL_MAX_D:
-        exp_lower, exp_upper, _ = tr_search(inp, stepsizes, lower0, upper0,
-                                            model.mask)
+    if search == "grid":
+        eta0, success = grid_search(
+            lambda etas: _tr_kl_direct(etas, inp.lin, inp.prec, inv_chols,
+                                       reward_lin, reward_quad, inp.kl_const,
+                                       means),
+            stepsizes, lower0, upper0, grid_size)
+        eta = torch.clamp(eta0, min=temperature)
     else:
-        m_w, c, b1 = _tr_whitened_precompute(means, chols, inv_chols,
-                                             reward_lin, reward_quad)
-        exp_lower, exp_upper, _ = bracket_search(
-            lambda etas: _tr_kl_whitened(etas, m_w, c, b1), stepsizes,
-            lower0, upper0, active=model.mask)
-    eta = torch.clamp(exp_lower, min=temperature)
-    success = exp_lower == exp_upper
+        if search == "bracket" and \
+                model.num_dimensions <= TR_KERNEL_MAX_D:
+            exp_lower, exp_upper, _ = tr_search(inp, stepsizes, lower0,
+                                                upper0, model.mask)
+        else:
+            m_w, c, b1 = _tr_whitened_precompute(means, chols, inv_chols,
+                                                 reward_lin, reward_quad)
+            if search == "newton":
+                exp_lower, exp_upper, _ = newton_search(
+                    lambda etas: _tr_kl_whitened_grad(etas, m_w, c, b1),
+                    stepsizes, lower0, upper0,
+                    _newton_start(m_w, c, b1, stepsizes, last),
+                    active=model.mask)
+            else:
+                exp_lower, exp_upper, _ = bracket_search(
+                    lambda etas: _tr_kl_whitened(etas, m_w, c, b1),
+                    stepsizes, lower0, upper0, active=model.mask)
+        eta = torch.clamp(exp_lower, min=temperature)
+        success = exp_lower == exp_upper
 
     kl, new_means, new_chols, new_inv_chols = _tr_final_full(
         eta, inp.lin, inp.prec, inv_chols, reward_lin, reward_quad,

@@ -25,16 +25,30 @@ gates need no device read; the bisections read one flag per trip.  When
 VIPS fills the padded capacity below its ``max_components``, the state is
 repadded between steps (:meth:`GMMVI.grow_capacity`), as the JAX package
 does.
+
+The ``tpu`` settings of the JAX package that select other paths are read
+as it reads them: ``trust_region_search`` (``bracket``, ``newton``,
+``grid``, ``bracket-eigen``) and ``trust_region_grid_size``,
+``db_eviction: decimate`` (the decimating database,
+``sample_db_decimate``, sized by ``max_database_size``,
+``decimate_capacity_cap`` and ``max_dists``) and ``debug_nans`` (a step
+whose state holds a NaN is run again under :class:`NanCheck`, which
+raises ``FloatingPointError`` at the first operation that made one).  With
+``num_prior_samples > 0`` and a configured prior, every step draws that
+many prior samples, evaluates the target on them and adds them to the add
+heuristic's candidates.  Meshes raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
 import warnings
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.experiments.targets.lnpdf import LNPDF
@@ -51,7 +65,7 @@ from gmmvi_tpu_torch.optimization import stepsize_adapters as step_ops
 from gmmvi_tpu_torch.optimization import weight_updaters as w_ops
 from gmmvi_tpu_torch.optimization.component_adaptation import (
     AdaptationState, VipsConfig)
-from gmmvi_tpu_torch.optimization.sample_db import SampleDbState
+from gmmvi_tpu_torch.optimization import sample_db_decimate as dec_ops
 from gmmvi_tpu_torch.optimization.sample_selectors import SelectorConfig
 from gmmvi_tpu_torch.optimization.stepsize_adapters import \
     WeightStepsizeState
@@ -64,7 +78,7 @@ class TrainState:
 
     model: GmmState
     meta: MetaState
-    db: SampleDbState
+    db: Union[db_ops.SampleDbState, dec_ops.DecimatingDbState]
     wstep: WeightStepsizeState
     adapt: AdaptationState
     num_updates: int
@@ -79,15 +93,54 @@ class StepDraws:
     one, which also takes mapping ``[n_des]``, component indices drawn by
     the weights; rand_slots ``[B]`` integers in [0, C) and accept_u ``[B]``
     uniform in [0, 1) (the reservoir; B the proposal's size, ``Kmax n_des``
-    or ``n_des``); db_perm ``[n]`` distinct reservoir slots and add_a a 0-d
-    uniform (an add).  The last two are read only when an add is due."""
+    or ``n_des``; None for a decimating database, which has none); the
+    candidates of an add: db_perm ``[n]`` distinct reservoir slots or, where
+    the candidates are the stored samples (the database's ``uses_reservoir``
+    False), db_u ``[S]`` uniform in [0, 1); add_a a 0-d uniform (an add).
+    These three are read only when an add is due.  prior_eps ``[P, D]``
+    standard normal: the prior samples, every step when
+    ``num_prior_samples`` P > 0 and a prior is configured."""
 
     eps: torch.Tensor
-    rand_slots: torch.Tensor
-    accept_u: torch.Tensor
+    rand_slots: Optional[torch.Tensor]
+    accept_u: Optional[torch.Tensor]
     db_perm: Optional[torch.Tensor] = None
     add_a: Optional[torch.Tensor] = None
     mapping: Optional[torch.Tensor] = None
+    db_u: Optional[torch.Tensor] = None
+    prior_eps: Optional[torch.Tensor] = None
+
+
+class NanCheck(TorchDispatchMode):
+    """Raises ``FloatingPointError``, naming the operation, at the first
+    operation on tensors whose floating-point output holds a NaN (a
+    constant made from a Python NaN is not such an output).  Every output
+    is read back: ``tpu.debug_nans`` runs a step under it only to find
+    where a NaN that reached the state came from (:meth:`GMMVI.train_iter`),
+    as JAX's ``jax_debug_nans`` re-runs a compiled step op by op; masked
+    intermediates (a zero weight times a -inf log weight, a rejected
+    Cholesky factor) raise there too."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not any(isinstance(a, torch.Tensor)
+                   for a in tree_leaves((args, kwargs))):
+            return out
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                    and bool(torch.isnan(t).any()):
+                raise FloatingPointError(f"NaN in the output of {func}")
+        return out
+
+
+def _has_nan(state: "TrainState") -> bool:
+    """Whether a floating-point leaf of ``state`` holds a NaN (one read)."""
+    flags = [torch.isnan(t).any()
+             for part in (state.model, state.meta, state.db, state.wstep,
+                          state.adapt)
+             for t in vars(part).values()
+             if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    return bool(torch.stack(flags).any())
 
 
 class GMMVI:
@@ -102,7 +155,9 @@ class GMMVI:
                  weight_updater_type: str, weight_updater_cfg: dict,
                  weight_stepsize_type: str, weight_stepsize_cfg: dict,
                  vips_cfg: Optional[VipsConfig], seed: int,
-                 device: torch.device):
+                 device: torch.device, prior_mean=None, prior_cov_diag=None,
+                 trust_region_search: str = "bracket",
+                 trust_region_grid_size: int = 32, debug_nans: bool = False):
         self.target_distribution = target_distribution
         self.state = initial_state
         self.temperature = float(temperature)
@@ -119,6 +174,16 @@ class GMMVI:
         self.vips_cfg = vips_cfg
         self.device = device
         self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.trust_region_search = trust_region_search
+        self.trust_region_grid_size = int(trust_region_grid_size)
+        self.debug_nans = bool(debug_nans)
+        # the prior of the add heuristic's prior samples (None: none drawn)
+        self.prior_mean = self.prior_std = None
+        if (prior_mean is not None and vips_cfg is not None
+                and vips_cfg.num_prior_samples > 0):
+            self.prior_mean = torch.as_tensor(prior_mean, device=device)
+            self.prior_std = torch.sqrt(torch.as_tensor(prior_cov_diag,
+                                                        device=device))
 
     # ------------------------------------------------------------------
     # Random draws
@@ -137,18 +202,27 @@ class GMMVI:
             b = n_des
             eps_shape = (n_des, model.num_dimensions)
             mapping = gmm_ops.sample_categorical(model, n_des, g)
-        c = db.reservoir_capacity
-        draws = StepDraws(
-            eps=torch.randn(eps_shape, generator=g, device=dev),
-            rand_slots=torch.randint(0, c, (b,), generator=g, device=dev,
-                                     dtype=torch.int32),
-            accept_u=torch.rand((b,), generator=g, device=dev),
-            mapping=mapping)
+        draws = StepDraws(eps=torch.randn(eps_shape, generator=g, device=dev),
+                          rand_slots=None, accept_u=None, mapping=mapping)
+        if db.has_reservoir:
+            draws.rand_slots = torch.randint(
+                0, db.reservoir_capacity, (b,), generator=g, device=dev,
+                dtype=torch.int32)
+            draws.accept_u = torch.rand((b,), generator=g, device=dev)
         cfg = self.vips_cfg
         if cfg is not None and adapt_ops.add_is_due(cfg, iteration + 1):
-            draws.db_perm = torch.randperm(c, generator=g, device=dev)[
-                :cfg.num_database_samples]
+            if db.uses_reservoir:
+                draws.db_perm = torch.randperm(
+                    db.reservoir_capacity, generator=g,
+                    device=dev)[:cfg.num_database_samples]
+            else:
+                draws.db_u = torch.rand((db.capacity,), generator=g,
+                                        device=dev)
             draws.add_a = torch.rand((), generator=g, device=dev)
+        if self.prior_mean is not None:
+            draws.prior_eps = torch.randn(
+                (cfg.num_prior_samples, model.num_dimensions), generator=g,
+                device=dev)
         return draws
 
     # ------------------------------------------------------------------
@@ -167,9 +241,20 @@ class GMMVI:
         return sel_ops.propose(state.model, state.db, self.selector_cfg,
                                draws.eps, draws.mapping)
 
+    def _prior_samples(self, draws: StepDraws):
+        """The prior samples ``prior_mean + sqrt(initial_cov) eps`` and the
+        target's log densities at them (None, None without a prior)."""
+        if self.prior_mean is None:
+            return None, None
+        samples = self.prior_mean[None, :] + self.prior_std[None, :] \
+            * draws.prior_eps
+        lnpdfs = self.target_distribution.log_density(samples)
+        return samples, lnpdfs.to(samples.dtype)
+
     def _update_phase(self, state: TrainState, prop: sel_ops.Proposal,
                       lnpdfs: torch.Tensor, grads: torch.Tensor,
-                      draws: StepDraws) -> TrainState:
+                      draws: StepDraws, prior_samples=None,
+                      prior_lnpdfs=None) -> TrainState:
         iteration = state.num_updates
         db, window, pack = sel_ops.finalize_fused(
             state.model, state.db, self.selector_cfg, iteration, prop,
@@ -181,7 +266,8 @@ class GMMVI:
         if self.vips_cfg is not None:
             model, meta, adapt, db = adapt_ops.adapt_number_of_components(
                 model, meta, adapt, db, self.vips_cfg, num_updates,
-                draws.db_perm, draws.add_a)
+                draws.db_perm if db.uses_reservoir else draws.db_u,
+                draws.add_a, prior_samples, prior_lnpdfs)
         return TrainState(model=model, meta=meta, db=db, wstep=wstep,
                           adapt=adapt, num_updates=num_updates)
 
@@ -211,10 +297,13 @@ class GMMVI:
                 window.background_log_pdfs, window.target_lnpdfs,
                 window.target_grads, **est_kw)
         # 3. component update
+        upd_kw = dict(temperature=self.temperature)
+        if self.updater_type == "trust-region":
+            upd_kw.update(search=self.trust_region_search,
+                          grid_size=self.trust_region_grid_size)
         model, meta = upd_ops.UPDATERS[self.updater_type](
             model, meta, est.expected_hessians_neg,
-            est.expected_gradients_neg, meta.stepsizes,
-            temperature=self.temperature)
+            est.expected_gradients_neg, meta.stepsizes, **upd_kw)
         # 4. weight stepsize
         wstep = step_ops.WEIGHT_STEPSIZE_ADAPTERS[self.weight_stepsize_type](
             wstep, model, meta, self.weight_stepsize_cfg)
@@ -260,7 +349,9 @@ class GMMVI:
             lnpdfs, grads = self._eval_target(prop.samples)
         else:
             lnpdfs, grads = self._eval_valid_rows(prop.samples, prop.valid)
-        return self._update_phase(state, prop, lnpdfs, grads, draws)
+        prior_samples, prior_lnpdfs = self._prior_samples(draws)
+        return self._update_phase(state, prop, lnpdfs, grads, draws,
+                                  prior_samples, prior_lnpdfs)
 
     # ------------------------------------------------------------------
     # Capacity growth (VIPS can outgrow the initial padding)
@@ -279,7 +370,7 @@ class GMMVI:
         self.state = TrainState(
             model=gmm_ops.repad(state.model, new_max_components),
             meta=meta_ops.repad_meta(state.meta, new_max_components),
-            db=db_ops.repad_db(state.db, new_max_components, new_cap),
+            db=state.db.repad(new_max_components, new_cap),
             wstep=state.wstep, adapt=state.adapt,
             num_updates=state.num_updates)
 
@@ -326,7 +417,13 @@ class GMMVI:
         self._maybe_grow()
         if draws is None:
             draws = self.draw(self.state.num_updates)
-        self.state = self._full_step(self.state, draws)
+        state = self._full_step(self.state, draws)
+        if self.debug_nans and _has_nan(state):
+            # the step again, op by op, to name where the NaN came from
+            with NanCheck():
+                self._full_step(self.state, draws)
+            raise FloatingPointError("NaN in the state after the step")
+        self.state = state
 
     def train_iters(self, n: int) -> None:
         for _ in range(n):
@@ -373,14 +470,19 @@ class GMMVI:
                                                  default_bg)))
 
         vips_cfg = None
+        prior_mean = prior_cov_diag = None
         if config["num_component_adapter_type"] == "adaptive":
             ac = config["num_component_adapter_config"]
             mi = config.get("model_initialization", {})
             pm, ic = mi.get("prior_mean"), mi.get("initial_cov")
             prior_entropy = None
             if pm is not None and ic is not None:
+                prior_mean = np.asarray(pm, np.float32) * np.ones(
+                    d, np.float32)
+                prior_cov_diag = np.asarray(ic, np.float32) * np.ones(
+                    d, np.float32)
                 prior_entropy = adapt_ops.diagonal_gaussian_entropy(
-                    np.asarray(ic, np.float32) * np.ones(d, np.float32))
+                    prior_cov_diag)
             vips_cfg = VipsConfig(
                 del_iters=int(ac["del_iters"]),
                 add_iters=int(ac["add_iters"]),
@@ -393,10 +495,6 @@ class GMMVI:
                 num_database_samples=int(ac["num_database_samples"]),
                 num_prior_samples=int(ac["num_prior_samples"]),
                 prior_entropy=prior_entropy)
-            if vips_cfg.num_prior_samples > 0:
-                raise NotImplementedError(
-                    "prior samples for the add heuristic "
-                    "(num_prior_samples > 0) are not ported yet")
 
         w_total = sel_ops.total_window_size(selector_cfg, kmax)
         # with reuse, old samples need their generating distributions kept
@@ -410,11 +508,25 @@ class GMMVI:
         if vips_cfg is not None and vips_cfg.num_database_samples > reservoir:
             vips_cfg = vips_cfg._replace(num_database_samples=reservoir)
         keep_samples = bool(config.get("use_sample_database", True))
-        db = db_ops.create_sample_db(
-            dim=d, max_components=kmax, capacity=w_total,
-            dist_ring_iters=int(tpu_cfg.get("dist_ring_iters", default_ring)),
-            reservoir_capacity=reservoir, diagonal=model.diagonal,
-            keep_samples=keep_samples, device=dev)
+        if str(tpu_cfg.get("db_eviction", "ring")) == "decimate":
+            # the reference's decimation on overflow, as the JAX package
+            # sizes it: every add appends <= num_active components and >=
+            # num_active samples, so capacity + Kmax table rows suffice
+            cap = max(min(int(config.get("max_database_size", 10_000_000)),
+                          int(tpu_cfg.get("decimate_capacity_cap",
+                                          262_144))), w_total)
+            db = dec_ops.create_decimating_db(
+                dim=d, max_components=kmax, capacity=cap,
+                dist_capacity=int(tpu_cfg.get("max_dists", cap + kmax)),
+                diagonal=model.diagonal, keep_samples=keep_samples,
+                device=dev)
+        else:
+            db = db_ops.create_sample_db(
+                dim=d, max_components=kmax, capacity=w_total,
+                dist_ring_iters=int(tpu_cfg.get("dist_ring_iters",
+                                                default_ring)),
+                reservoir_capacity=reservoir, diagonal=model.diagonal,
+                keep_samples=keep_samples, device=dev)
         if not keep_samples:
             # no database: no reuse, as the JAX package configures it
             selector_cfg = selector_cfg._replace(reused_samples_per_component=0)
@@ -452,15 +564,18 @@ class GMMVI:
             weight_updater_cfg=config["weight_updater_config"],
             weight_stepsize_type=config["weight_stepsize_adapter_type"],
             weight_stepsize_cfg=config["weight_stepsize_adapter_config"],
-            vips_cfg=vips_cfg, seed=seed, device=dev)
+            vips_cfg=vips_cfg, seed=seed, device=dev, prior_mean=prior_mean,
+            prior_cov_diag=prior_cov_diag,
+            trust_region_search=str(tpu_cfg.get("trust_region_search",
+                                                "bracket")),
+            trust_region_grid_size=int(tpu_cfg.get("trust_region_grid_size",
+                                                   32)),
+            debug_nans=bool(tpu_cfg.get("debug_nans", False)))
 
 
 # tpu.* settings whose other values select paths not ported yet
 _SUPPORTED_TPU = {
-    "trust_region_search": ("bracket",),
     "db_layout": ("auto", "global"),
-    "db_eviction": ("ring",),
-    "debug_nans": (False,),
 }
 
 

@@ -19,30 +19,32 @@ uniforms, candidate permutation) come in as tensors, so a caller can inject
 any draws it likes.
 
 With sample reuse the window holds samples of older iterations, whose
-generating distributions are read back from the distribution ring: the
-distinct ones are counted, the ``max_background_dists`` most used kept (in
-``lax.top_k``'s order) and their count-weighted mixture evaluated at every
-sample by kernel B4 (``ops/background.py``, whose plain version is the JAX
-package's ``_dist_log_pdfs`` chain).  Counts and the selection table are
-scatters into spill-binned tensors, so no step reads the device.
+generating distributions are read back from the distribution ring and
+weighted by ``sample_window.background`` (kernel B4 on the card).  A
+diagonal model's ring holds ``[R, Kmax, D]`` square roots of the variances
+and their reciprocals.
 
-A diagonal model's ring holds ``[R, Kmax, D]`` square roots of the
-variances and their reciprocals, and its background mixture is plain
-torch (the JAX package's XLA chain), so B4 is not launched.
+With ``tpu.db_eviction: decimate`` the database is a
+``sample_db_decimate.DecimatingDbState`` instead.  The optimizer calls
+either through the methods the two state classes share
+(``add_samples``, ``get_newest_samples``, ``get_newest_samples_fused``,
+``get_random_samples``, ``repad``, ``size_metrics``, ``has_reservoir``,
+``uses_reservoir``), so the kind chosen when it is built is never tested
+again.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from gmmvi_tpu_torch.device import resolve_device
-from gmmvi_tpu_torch.models.gmm import (LOG_2PI, DensityPack, GmmState,
-                                        density_pack, diag_half_maha)
-from gmmvi_tpu_torch.ops.background import background_logpdf
+from gmmvi_tpu_torch.models.gmm import DensityPack, GmmState, density_pack
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
+from gmmvi_tpu_torch.optimization.sample_window import (
+    SampleWindow, background, count_bins, select_dists)
 
 
 @dataclass
@@ -85,6 +87,38 @@ class SampleDbState:
 
     def replace(self, **kw) -> "SampleDbState":
         return dataclasses.replace(self, **kw)
+
+    # the interface the optimizer calls, shared with DecimatingDbState
+    has_reservoir = True
+
+    @property
+    def uses_reservoir(self) -> bool:
+        """Whether the add candidates come from the reservoir (drawn by a
+        permutation of its slots) rather than from the newest add batch
+        (drawn by ``[S]`` uniforms): False without a database
+        (``use_sample_database: False``)."""
+        return self.keep_samples
+
+    def add_samples(self, *args) -> "SampleDbState":
+        return add_samples(self, *args)
+
+    def get_newest_samples(self, *args) -> SampleWindow:
+        return get_newest_samples(self, *args)
+
+    def get_newest_samples_fused(self, *args, **kw):
+        return get_newest_samples_fused(self, *args, **kw)
+
+    def get_random_samples(self, *args):
+        return get_random_samples(self, *args)
+
+    def repad(self, *args) -> "SampleDbState":
+        return repad_db(self, *args)
+
+    def size_metrics(self):
+        """The runner's ``db_size`` and ``num_dists``, 0-d float64."""
+        return (torch.clamp(self.write_pos, max=self.capacity).double(),
+                torch.sum(self.dist_block_iter >= 0).double()
+                * self.max_components)
 
 
 def create_sample_db(dim: int, max_components: int, capacity: int,
@@ -198,27 +232,6 @@ def add_samples(db: SampleDbState, iteration: int, model: GmmState,
     )
 
 
-@dataclass
-class SampleWindow:
-    """A statically-shaped view of the newest samples with their background
-    densities; ``[W]``-shaped with a validity mask."""
-
-    samples: torch.Tensor              # [W, D]
-    mapping: torch.Tensor              # [W] generating slot
-    target_lnpdfs: torch.Tensor        # [W]
-    target_grads: torch.Tensor         # [W, D]
-    background_log_pdfs: torch.Tensor  # [W]
-    valid: torch.Tensor                # [W] bool
-    num_valid: torch.Tensor            # 0-d int32
-    sample_iters: torch.Tensor         # [W] int32
-
-    @property
-    def newest_mask(self) -> torch.Tensor:
-        """True for the valid samples of the newest add batch."""
-        newest = torch.max(torch.where(self.valid, self.sample_iters, -1))
-        return self.valid & (self.sample_iters == newest)
-
-
 def _gather_window(db: SampleDbState, window: int,
                    n_requested: torch.Tensor):
     """The ``window`` newest ring rows, oldest first, with a validity mask:
@@ -253,46 +266,6 @@ def _gather_dists(db: SampleDbState, keys: torch.Tensor):
             db.dist_inv_chols.reshape(-1, *factor)[keys], log_dets)
 
 
-def _background(db: SampleDbState, means, inv_chols, log_weights, log_dets,
-                samples) -> torch.Tensor:
-    """The count-weighted background log-density ``[N]`` over the rows
-    with a finite log weight: kernel B4 (``background_logpdf``), or for a
-    diagonal ring the JAX package's XLA chain in plain torch
-    (``_dist_log_pdfs`` then ``masked_logsumexp``)."""
-    if not db.diagonal:
-        return background_logpdf(means, inv_chols, log_weights, log_dets,
-                                 samples)
-    log_pdfs = diag_half_maha(means, inv_chols, samples) \
-        - log_dets[:, None] - 0.5 * means.shape[1] * LOG_2PI
-    return masked_logsumexp(log_pdfs + log_weights[:, None],
-                            mask=(log_weights > NEG_INF)[:, None], dim=0)
-
-
-def _count(bins: torch.Tensor, size: int) -> torch.Tensor:
-    """``[size]`` float counts of ``bins``; entries equal to ``size`` go to
-    a spill bin (a scatter-add of ones: exact, and unlike bincount no host
-    sync)."""
-    bins = bins.long()
-    return torch.zeros(size + 1, dtype=torch.float32,
-                       device=bins.device).index_add_(
-        0, bins, torch.ones_like(bins, dtype=torch.float32))[:size]
-
-
-def _select_dists(counts: torch.Tensor, u: int, dist_key: torch.Tensor):
-    """The ``u`` most used distributions in ``lax.top_k``'s order (by count,
-    ties to the lower key): ``(top_counts, top_keys, sel_mask, selected)``
-    where ``selected`` says for each sample whether its distribution is among
-    them."""
-    nkeys = counts.shape[0]
-    top_keys = torch.sort(counts, descending=True, stable=True).indices[:u]
-    top_counts = counts[top_keys]
-    sel_mask = top_counts > 0
-    table = torch.zeros(nkeys + 1, dtype=torch.bool, device=counts.device)
-    table[torch.where(sel_mask, top_keys, nkeys)] = True
-    selected = table[torch.clamp(dist_key.long(), max=nkeys)]
-    return top_counts, top_keys, sel_mask, selected
-
-
 def get_newest_samples(db: SampleDbState, window: int,
                        n_requested: torch.Tensor, max_background_dists: int
                        ) -> SampleWindow:
@@ -304,8 +277,8 @@ def get_newest_samples(db: SampleDbState, window: int,
     samples, lnpdfs, grads, comp, valid, dist_key, sample_iters = \
         _gather_window(db, window, n_requested)
     nkeys = r * kmax
-    counts = _count(torch.where(valid, dist_key, nkeys), nkeys)
-    top_counts, top_keys, sel_mask, selected = _select_dists(
+    counts = count_bins(torch.where(valid, dist_key, nkeys), nkeys)
+    top_counts, top_keys, sel_mask, selected = select_dists(
         counts, min(max_background_dists, nkeys), dist_key)
     valid = valid & selected
     total = torch.sum(torch.where(sel_mask, top_counts, 0.0))
@@ -316,8 +289,8 @@ def get_newest_samples(db: SampleDbState, window: int,
     means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
     # (the counts are float32, as in the JAX package; a float64 state
     # takes their logarithms exactly)
-    bg = _background(db, means_u, inv_u, log_weights.to(means_u.dtype),
-                     log_dets_u, samples)
+    bg = background(db.diagonal, means_u, inv_u,
+                    log_weights.to(means_u.dtype), log_dets_u, samples)
     return SampleWindow(
         samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
         target_grads=grads, background_log_pdfs=bg, valid=valid,
@@ -344,7 +317,7 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
 
     is_cur = torch.div(dist_key, kmax, rounding_mode="floor") \
         == iteration % r
-    counts_cur = _count(torch.where(valid & is_cur, comp, kmax), kmax)
+    counts_cur = count_bins(torch.where(valid & is_cur, comp, kmax), kmax)
     if not any_old_dists:
         total = counts_cur.sum()
         log_w_cur = torch.where(
@@ -358,8 +331,9 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
         valid = valid & is_cur
     else:
         nkeys = r * kmax
-        counts = _count(torch.where(valid & ~is_cur, dist_key, nkeys), nkeys)
-        top_counts, top_keys, sel_mask, selected = _select_dists(
+        counts = count_bins(torch.where(valid & ~is_cur, dist_key, nkeys),
+                            nkeys)
+        top_counts, top_keys, sel_mask, selected = select_dists(
             counts, min(max_background_dists, nkeys), dist_key)
         valid = valid & (is_cur | selected)
         total = torch.sum(torch.where(sel_mask, top_counts, 0.0)) \
@@ -373,7 +347,7 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
         means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
         # all U rows: the kernel skips the unselected ones, so the JAX
         # package's two-size ladder (a cond on the live count) is not needed
-        bg_old = _background(db, means_u, inv_u,
+        bg_old = background(db.diagonal, means_u, inv_u,
                              log_w_old.to(means_u.dtype), log_dets_u,
                              samples)
         bg_cur = masked_logsumexp(
@@ -387,17 +361,29 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
     return win, pack
 
 
-def get_random_samples(db: SampleDbState, perm: torch.Tensor
+def get_random_samples(db: SampleDbState, draw: torch.Tensor,
+                       n: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(samples, lnpdfs, valid) at reservoir slots ``perm`` (the first n
-    entries of a random permutation of the C slots, so no slot repeats);
-    slots beyond the filled prefix are invalid."""
+    """``n`` (samples, lnpdfs, valid) candidates for the add heuristic,
+    without replacement.  From the reservoir (``uses_reservoir``): ``draw``
+    is the first ``n`` entries of a random permutation of its C slots, and
+    slots beyond the filled prefix are invalid.  Without a database
+    ``draw`` is ``[S]`` uniforms in [0, 1), and the candidates are the rows
+    of the newest add batch in their stable order, the first ``n`` (all
+    with ``n`` None): the reference's database then holds only that
+    batch."""
     if not db.keep_samples:
-        raise NotImplementedError(
-            "candidates from the newest batch (use_sample_database: False) "
-            "are not ported yet")
+        s = db.capacity
+        pos = db.write_pos.to(torch.int64) - 1 - torch.arange(
+            s, device=draw.device)                           # newest first
+        idx = torch.remainder(pos, s)
+        it = db.sample_iter[idx]
+        newest = torch.max(torch.where(pos >= 0, it, -1))
+        ok = (pos >= 0) & (it == newest)
+        sel = torch.argsort(torch.where(ok, draw, 2.0), stable=True)[:n]
+        return db.samples[idx[sel]], db.target_lnpdfs[idx[sel]], ok[sel]
     filled = torch.clamp(db.res_count, max=db.reservoir_capacity)
-    perm = perm.long()
+    perm = draw.long()
     return db.res_samples[perm], db.res_lnpdfs[perm], perm < filled
 
 

@@ -24,7 +24,6 @@ import torch
 
 from gmmvi_tpu_torch.models import gmm as gmm_ops
 from gmmvi_tpu_torch.models.gmm import GmmState
-from gmmvi_tpu_torch.optimization import sample_db as db_ops
 from gmmvi_tpu_torch.optimization.sample_db import SampleDbState
 from gmmvi_tpu_torch.ops.stable import masked_logsumexp
 
@@ -88,8 +87,8 @@ def propose(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
     w_reuse = reuse_window_size(cfg, kmax)
     win = None
     if w_reuse > 0:
-        win = db_ops.get_newest_samples(
-            db, w_reuse, cfg.reused_samples_per_component * model.num_active,
+        win = db.get_newest_samples(
+            w_reuse, cfg.reused_samples_per_component * model.num_active,
             cfg.max_background_dists)
         num_reused = win.num_valid
     else:
@@ -145,12 +144,12 @@ def finalize_fused(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
     window of the newest samples and the current model's density pack over
     it (kernel B1 on the card), shared by the background mixture and the
     natural-gradient estimator."""
-    db = db_ops.add_samples(
-        db, iteration, model, proposal.samples, proposal.valid,
+    db = db.add_samples(
+        iteration, model, proposal.samples, proposal.valid,
         proposal.mapping, target_lnpdfs, target_grads, rand_slots, accept_u)
     n_new = proposal.valid.sum(dtype=torch.int32)
-    win, pack = db_ops.get_newest_samples_fused(
-        db, total_window_size(cfg, model.max_components),
+    win, pack = db.get_newest_samples_fused(
+        total_window_size(cfg, model.max_components),
         proposal.num_reused + n_new, cfg.max_background_dists, model,
         iteration, any_old_dists=cfg.reused_samples_per_component > 0)
     return db, win, pack

@@ -114,12 +114,10 @@ class GmmviRunner:
     def get_cheap_metrics(self) -> dict:
         """One copy from the card of all cheap metrics."""
         st = self.gmmvi.state
-        db = st.db
+        db_size, num_dists = st.db.size_metrics()
         vals = torch.stack([
-            db.num_samples_written.double(), st.model.num_active.double(),
-            torch.max(st.model.weights).double(),
-            torch.clamp(db.write_pos, max=db.capacity).double(),
-            torch.sum(db.dist_block_iter >= 0).double() * db.max_components,
+            st.db.num_samples_written.double(), st.model.num_active.double(),
+            torch.max(st.model.weights).double(), db_size, num_dists,
         ]).tolist()
         return {"num_samples": int(vals[0]), "num_components": int(vals[1]),
                 "max_weight": float(vals[2]),

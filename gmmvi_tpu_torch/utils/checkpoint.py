@@ -31,10 +31,10 @@ _IGNORED_LEAVES = ("key",)   # the JAX package's PRNG key
 def _leaf_specs(state) -> Dict[str, Tuple[tuple, np.dtype]]:
     """(shape, numpy dtype) of every leaf of ``state`` by path, read without
     copying the state to the host."""
-    from gmmvi_tpu_torch import _PARTS, _tensor_fields
+    from gmmvi_tpu_torch import _part_classes, _tensor_fields
 
     specs = {}
-    for part, cls in _PARTS.items():
+    for part, cls in _part_classes(state).items():
         obj = getattr(state, part)
         for name in _tensor_fields(cls):
             t = getattr(obj, name)

@@ -8,8 +8,11 @@ widths; with ``--experiment stm300`` or ``gmm20``, the codename on that
 experiment from ``get_default_config(codename, experiment)``: the 300-D
 Student-T mixture, the runner path's 20-D GMM, which starts from one
 component, so give it a longer ``--warmup``, the 34-D Talos IK posterior
-or the 177-D wine BNN, whose steps take the host-target path), runs
-warm-up steps, then
+or the 177-D wine BNN, whose steps take the host-target path), with
+``--search`` another trust-region search (``tpu.trust_region_search``) and
+with ``--decimate`` the decimating database (``tpu.db_eviction: decimate``,
+``max_database_size`` 65,536, as ``chip_smoke.py``'s zamtrux_decimate
+path), runs warm-up steps, then
 traces ``--steps`` steps with ``torch.profiler``.  Writes the profiler's
 table (sorted by device time) to
 ``<out-dir>/profile_torch_step_<codename>[_<experiment>].txt`` and prints
@@ -21,7 +24,8 @@ device ms per step for the port's kernels and for the largest other groups.
 
 Run from the repository root on a machine with the card:
 ``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]
-[--experiment stm300 | talos | wine | gmm20 --warmup 600]``.
+[--experiment stm300 | talos | wine | gmm20 --warmup 600]
+[--search newton | grid | bracket-eigen] [--decimate]``.
 """
 from __future__ import annotations
 
@@ -45,6 +49,10 @@ def main() -> int:
     ap.add_argument("--experiment", default="flagship",
                     choices=("flagship", "stm300", "gmm20", "talos",
                              "wine"))
+    ap.add_argument("--search", default="bracket",
+                    choices=("bracket", "newton", "grid", "bracket-eigen"))
+    ap.add_argument("--decimate", action="store_true",
+                    help="the decimating database, 65,536 samples")
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out-dir", default=os.path.join("build", "profile"),
@@ -55,8 +63,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from chip_smoke import D, flagship_config
-    from gmmvi_tpu_torch.configs import get_default_config
+    from chip_smoke import DECIMATE_DB_SIZE, D, flagship_config
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
     from gmmvi_tpu_torch.device import resolve_device
     from gmmvi_tpu_torch.experiments.setup import init_experiment
     from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
@@ -65,13 +73,18 @@ def main() -> int:
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     dev = resolve_device("cuda")
+    over = {"tpu": {"trust_region_search": args.search}}
+    if args.decimate:
+        over = {"max_database_size": DECIMATE_DB_SIZE,
+                "tpu": {**over["tpu"], "db_eviction": "decimate"}}
     if args.experiment != "flagship":
-        cfg = get_default_config(args.codename, args.experiment)
+        cfg = update_config(get_default_config(args.codename,
+                                               args.experiment), over)
         target, model, meta = init_experiment(cfg, device=dev)
     else:
         target = make_target(num_dimensions=D, harder_setting=False, seed=0,
                              device=dev)
-        cfg = flagship_config(codename=args.codename)
+        cfg = update_config(flagship_config(codename=args.codename), over)
         cfg["target_fn"] = target
         _, model, meta = init_experiment(cfg, device=dev)
     gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
@@ -90,7 +103,10 @@ def main() -> int:
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=60)
     os.makedirs(args.out_dir, exist_ok=True)
-    suffix = "" if args.experiment == "flagship" else f"_{args.experiment}"
+    suffix = ("" if args.experiment == "flagship" else
+              f"_{args.experiment}") + (
+        "" if args.search == "bracket" else f"_{args.search}") + (
+        "_decimate" if args.decimate else "")
     with open(os.path.join(args.out_dir,
                            f"profile_torch_step_{args.codename}{suffix}.txt"),
               "w") as fh:
@@ -140,6 +156,8 @@ def main() -> int:
         "device": torch.cuda.get_device_name(0),
         "codename": args.codename,
         "experiment": args.experiment,
+        "search": args.search,
+        "decimate": args.decimate,
         "warmup": args.warmup,
         "num_active": int(gmmvi.model.num_active),
         "max_components": gmmvi.model.max_components,

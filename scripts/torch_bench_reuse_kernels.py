@@ -335,7 +335,7 @@ def path_fevals(dev, variant: str, other) -> dict:
     from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
         make_target
     from gmmvi_tpu_torch.ops import background, mixture_logpdf, more
-    from gmmvi_tpu_torch.optimization import ng_estimators, sample_db
+    from gmmvi_tpu_torch.optimization import ng_estimators, sample_window
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     fns = {"current": (background.background_logpdf, more.more_grams,
@@ -345,9 +345,9 @@ def path_fevals(dev, variant: str, other) -> dict:
                      mixture_logpdf.mixture_logpdf_plain)}
     if other is not None:
         fns["other"] = (other[1], other[0], other[2])
-    saved = (sample_db.background_logpdf, ng_estimators.more_grams,
+    saved = (sample_window.background_logpdf, ng_estimators.more_grams,
              mixture_logpdf.mixture_logpdf)
-    (sample_db.background_logpdf, ng_estimators.more_grams,
+    (sample_window.background_logpdf, ng_estimators.more_grams,
      mixture_logpdf.mixture_logpdf) = fns[variant]
     try:
         target = make_target(num_dimensions=cs.D, harder_setting=False,
@@ -367,7 +367,7 @@ def path_fevals(dev, variant: str, other) -> dict:
                 "runner_fevals": int(state.db.num_samples_written),
                 "runner_components": int(state.model.num_active)}
     finally:
-        (sample_db.background_logpdf, ng_estimators.more_grams,
+        (sample_window.background_logpdf, ng_estimators.more_grams,
          mixture_logpdf.mixture_logpdf) = saved
 
 

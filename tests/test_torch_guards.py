@@ -156,39 +156,68 @@ def test_validate_config_reports_as_jax_does(case):
     tcfg.validate_config(tcfg.get_default_config("SAMTRON", "stm20"))
 
 
-@pytest.mark.parametrize("override,missing", [
-    ({"environment_name": "MNIST", "environment_config": {}}, "MNIST"),
-    ({"tpu": {"db_eviction": "decimate"}}, "db_eviction"),
-    ({"tpu": {"debug_nans": True}}, "debug_nans"),
-    ({"tpu": {"trust_region_search": "newton"}}, "trust_region_search"),
-    ({"num_component_adapter_config": {"num_prior_samples": 5}},
-     "prior samples"),
-])
-def test_paths_not_ported_raise(override, missing):
-    """Every module of the codename matrix is ported, for full and diagonal
-    covariances; what is not raises NotImplementedError naming itself: a
-    target not ported yet where the registry looks it up, a setting when
-    the optimizer is built from the config (the model made from the config
-    without the override)."""
+def _small_samtron():
+    """(config, target, model, meta) of a small SAMTRON run on the CPU."""
     from torch_parity import samtron_overrides
-    from gmmvi_tpu_torch.experiments.setup import (get_target_lnpdf,
-                                                   init_experiment)
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
     from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
         make_target
-    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     cfg = tcfg.update_config(tcfg.get_default_algorithm_config("SAMTRON"),
                              samtron_overrides(n_des=4, kmax=4, k0=2))
     target = make_target(3, False, seed=0, device="cpu")
     cfg["target_fn"] = target
     _, model, meta = init_experiment(cfg, device="cpu")
-    cfg = tcfg.update_config(cfg, override)
+    return cfg, target, model, meta
+
+
+@pytest.mark.parametrize("override,missing", [
+    ({"environment_name": "MNIST", "environment_config": {}}, "MNIST"),
+])
+def test_paths_not_ported_raise(override, missing):
+    """Every module of the codename matrix is ported, for full and diagonal
+    covariances; what is not raises NotImplementedError naming itself: a
+    target not ported yet where the registry looks it up."""
+    from gmmvi_tpu_torch.experiments.setup import get_target_lnpdf
+
+    cfg = tcfg.update_config(_small_samtron()[0], override)
     with pytest.raises(NotImplementedError, match=missing):
-        if "environment_name" in override:
-            get_target_lnpdf(cfg["environment_name"],
-                             cfg["environment_config"], 0, device="cpu")
-        else:
-            GMMVI.build_from_config(cfg, target, model, meta, device="cpu")
+        get_target_lnpdf(cfg["environment_name"], cfg["environment_config"],
+                         0, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    {"tpu": {"db_eviction": "decimate"}},
+    {"tpu": {"debug_nans": True}},
+    {"tpu": {"trust_region_search": "newton"}},
+    {"num_component_adapter_config": {"num_prior_samples": 5}},
+])
+def test_settings_that_raised_build_and_step(override):
+    """The settings that raised NotImplementedError until the port had
+    them build from the same config (the model made without the override)
+    and take a step to a finite state."""
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg, target, model, meta = _small_samtron()
+    g = GMMVI.build_from_config(tcfg.update_config(cfg, override), target,
+                                model, meta, device="cpu")
+    g.train_iter()
+    assert g.num_updates == 1
+    assert torch.isfinite(g.model.means).all()
+    assert int(g.state.db.num_samples_written) > 0
+
+
+def test_meshes_raise():
+    """Meshes (multi-device) are not ported: a data or component axis of
+    more than one device raises when the optimizer is built."""
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg, target, model, meta = _small_samtron()
+    for key in ("data_shards", "comp_shards"):
+        with pytest.raises(NotImplementedError, match="meshes"):
+            GMMVI.build_from_config(
+                tcfg.update_config(cfg, {"tpu": {key: 2}}), target, model,
+                meta, device="cpu")
 
 
 @pytest.mark.parametrize("kernel", ["background", "more"])

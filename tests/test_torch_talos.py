@@ -235,11 +235,46 @@ def _host_pair(codename="SAMTRON", d=6):
     return jg, tg, jfn, tfn
 
 
+def _gamma(n: int) -> float:
+    """``n u / (1 - n u)``, u the float32 unit roundoff."""
+    u = 2.0 ** -24
+    return n * u / (1.0 - n * u)
+
+
+def _handed_rows_bound(jg, draws):
+    """For JAX's next step on the host-target path: the proposal rows it
+    hands the callable (the valid rows padded with row 0 to a power of
+    two), the entry-wise bound ``2 gamma_{D+1} (|mu| + |L| |eps|)`` on the
+    difference of two float32 evaluations of ``mu + L eps`` at those rows,
+    and, in float64, all rows made with the next eps row and with the next
+    component's factor."""
+    _, prop = jg._jitted_propose(jg.state)
+    idx = np.flatnonzero(np.asarray(prop.valid))
+    bucket = min(1 << max(len(idx) - 1, 0).bit_length(), len(prop.valid))
+    rows = np.zeros(bucket, np.int64)
+    rows[:len(idx)] = idx
+    mu = np.asarray(jg.state.model.means, np.float64)
+    chol = np.asarray(jg.state.model.chols, np.float64)
+    eps = draws.eps.numpy().astype(np.float64)
+    d = mu.shape[1]
+    mag = np.abs(mu)[:, None, :] + np.einsum("kij,knj->kni", np.abs(chol),
+                                             np.abs(eps))
+    bound = 2.0 * _gamma(d + 1) * mag.reshape(-1, d)[rows]
+    others = [mu[:, None, :] + np.einsum("kij,knj->kni", c, e)
+              for c, e in ((chol, np.roll(eps, 1, axis=1)),
+                           (np.roll(chol, 1, axis=0), eps))]
+    return rows, bound, [o.reshape(-1, d) for o in others]
+
+
 def test_host_target_step_matches_jax_leaf_by_leaf():
     """Three SAMTRON steps on a HostLNPDF from JAX's state carried across
-    with JAX's draws: the callables are handed the same float32 arrays
-    (equal up to the last bit of mu + L eps, which the packages round each
-    their own way: rtol 1e-6), as many rows as the power-of-two bucket of the valid rows (the step's
+    with JAX's draws: the callables are handed the same float32 arrays,
+    entry by entry within the first-order float32 error bound of mu + L eps
+    that both packages round each their own way, ``2 gamma_{D+1} (|mu| +
+    |L| |eps|)`` with ``gamma_n = n u / (1 - n u)`` and ``u = 2^-24``, or
+    within rtol 1e-6 where that is larger (the bound rejects the rows of
+    the next eps row and of the next component's factor), as many rows as
+    the power-of-two bucket of the valid rows (the step's
     fevals: 384 of 576 rows at the first step, so 512, padded with row 0;
     fewer once samples are reused), and the states match leaf by leaf
     (integers exact, floats within rtol 1e-4 / atol 1e-5), the rows
@@ -252,6 +287,7 @@ def test_host_target_step_matches_jax_leaf_by_leaf():
             jax_state_leaves(jg.state), device="cpu", like=tg.state)
         draws = jax_step_draws(jg)
         fevals = int(jg.state.db.num_samples_written)
+        rows, bound, others = _handed_rows_bound(jg, draws)
         jg.train_iter()
         tg.train_iter(draws)
         fevals = int(jg.state.db.num_samples_written) - fevals
@@ -261,7 +297,11 @@ def test_host_target_step_matches_jax_leaf_by_leaf():
         buckets.append(got.shape[0])
         assert got.shape == want.shape == (1 << (fevals - 1).bit_length(),
                                            6)
-        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        bar = np.maximum(bound, 1e-6 * np.abs(want))
+        assert np.all(np.abs(got.astype(np.float64) - want) <= bar), \
+            np.max(np.abs(got.astype(np.float64) - want) / bar)
+        for other in others:       # the bar tells apart rows off by a draw
+            assert not np.all(np.abs(other[rows] - want) <= bar)
         assert_states_match(gmmvi_tpu_torch.state_to_numpy(tg.state),
                             jax_state_leaves(jg.state), rtol=1e-4,
                             atol=1e-5)

@@ -122,7 +122,11 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     ``dtype`` is the state's float type (JAX draws its normals in it; under
     ``jax.enable_x64`` its uniforms are float64 too).  The mixture-based
     selector draws ``n_des`` component indices by the state's weights and
-    ``[n_des, D]`` normals; without VIPS nothing is drawn for an add."""
+    ``[n_des, D]`` normals; without VIPS nothing is drawn for an add.  With
+    prior samples the key is split once more before the update phase's
+    split (``_full_step``); a decimating database draws no reservoir slots,
+    and its add candidates, like those of a ring without a database, come
+    from ``[S]`` uniforms (``db_u``) instead of a reservoir permutation."""
     from gmmvi_tpu.models import gmm as jgmm
     from gmmvi_tpu_torch import StepDraws
 
@@ -131,7 +135,8 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     kmax = st.model.max_components if kmax is None else kmax
     d = st.model.num_dimensions
     n_des = jax_gmmvi.selector_cfg.desired_samples_per_component
-    c = st.db.reservoir_capacity
+    ring = hasattr(st.db, "reservoir_capacity")
+    c = st.db.reservoir_capacity if ring else 0
     key1, k_sel = jax.random.split(key)
     mapping = None
     if jax_gmmvi.selector_cfg.is_vips:
@@ -142,23 +147,35 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
         cat_key, eps_key = jax.random.split(k_sel)
         mapping = jgmm.sample_categorical(st.model, cat_key, n_des)
         eps = jax.random.normal(eps_key, (n_des, d), dtype)
+    vips = jax_gmmvi.vips_cfg
+    prior_eps = None
+    if vips is not None and vips.num_prior_samples > 0 \
+            and jax_gmmvi.prior_mean is not None:
+        key1, k_prior = jax.random.split(key1)
+        prior_eps = jax.random.normal(
+            k_prior, (vips.num_prior_samples, d))
     _, k_db, k_adapt = jax.random.split(key1, 3)
-    slot_key, acc_key = jax.random.split(k_db)
-    rand_slots = jax.random.randint(slot_key, (b,), 0, c)
-    accept_u = jax.random.uniform(acc_key, (b,))
 
     def t(x, dtype=None):
         return torch.as_tensor(np.array(x), dtype=dtype)
 
-    draws = StepDraws(eps=t(eps), rand_slots=t(rand_slots, torch.int32),
-                      accept_u=t(accept_u))
+    draws = StepDraws(eps=t(eps), rand_slots=None, accept_u=None)
+    if ring:
+        slot_key, acc_key = jax.random.split(k_db)
+        draws.rand_slots = t(jax.random.randint(slot_key, (b,), 0, c),
+                             torch.int32)
+        draws.accept_u = t(jax.random.uniform(acc_key, (b,)))
     if mapping is not None:
         draws.mapping = t(mapping, torch.int64)
-    if jax_gmmvi.vips_cfg is not None:
+    if prior_eps is not None:
+        draws.prior_eps = t(prior_eps)
+    if vips is not None:
         db_key, a_key = jax.random.split(k_adapt)
-        n_db = jax_gmmvi.vips_cfg.num_database_samples
-        draws.db_perm = t(jax.random.permutation(db_key, c)[:n_db],
-                          torch.int64)
+        if ring and st.db.keep_samples:
+            draws.db_perm = t(jax.random.permutation(db_key, c)[
+                :vips.num_database_samples], torch.int64)
+        else:
+            draws.db_u = t(jax.random.uniform(db_key, (st.db.capacity,)))
         draws.add_a = t(jax.random.uniform(a_key, ()))
     return draws
 
