@@ -135,12 +135,39 @@ printing one JSON line:
    130 iterations; held to no kernel launch (a diagonal model is plain
    torch, as in the JAX package), a finite state, a rising ELBO and step
    21 on the card equal to the same step on the CPU, leaf by leaf at the
-   one-step bar (rtol 1e-4 / atol 1e-5).
+   one-step bar (rtol 1e-4 / atol 1e-5);
+7. meshes (``mesh_phases``): seven runs of ranks in fresh processes
+   (``parallel.mesh.spawn``), every rank on cuda:0, through
+   ``GMMVI.build_from_config`` / ``GmmviRunner.build_from_config`` with
+   the mesh from the config's ``tpu`` section, each printing one
+   ``{"phase": "mesh"}`` line (ranks, backend, layout, median step ms,
+   fevals, the ELBO after step 1 and at the end, collectives and bytes
+   per step, the ``PhaseTimers`` split, launches per step per rank) with
+   the replicated state's hash equal on every rank after every step: M1
+   the flagship SAMTRON on the global ring, two ranks over gloo, 30 steps,
+   step 1 held to the unmeshed step on the card from the same state and
+   draws (leaf by leaf at rtol 1e-4 / atol 1e-5, equal fevals); M2 the
+   same on the sharded ring (``db_layout: auto``), each rank's first
+   window held to its block of the one-process ``[2, ...]`` form's
+   (samples, masks, slots and iterations exactly, the rest at the bar);
+   M3 the flagship ZAMTRUX on the sharded ring, 40 steps (B8's partials
+   all-reduced); M4 the flagship SAMTRON on a 2 x 2 ``("data", "comp")``
+   mesh, four ranks, 10 steps (B3 on 24-component slices), step 1 held as
+   M1's; M5 stm300 on the sharded ring, 20 steps (B5-B7, B7's partial
+   all-reduced); M6 the gmm20 runner with ``tpu: {data_shards: 2}`` and 4
+   slots, 150 steps (grown to 16 slots), a checkpoint after step 125
+   resumed by fresh ranks and held equal to the bit at the end; M7 the
+   flagship SAMTRON with ``data_shards: 1`` over NCCL, step 1 held as
+   M1's (its bits compared too).  M2, M3, M5 and M6 are held to a rising
+   ELBO.  Then B1 and B2 at a data rank's 4,800 rows and B3's search on a
+   comp rank's 24 components against their plain versions, with bounds.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
 B5-B7, the runner for B9; the ``paths`` of B1-B7 and B9: their numbers
-on each path's last inputs; each path's own counts are in its line), the
+on each path's last inputs; ``mesh_launches_per_step_per_rank`` on M1-M7
+and ``rank_shape``, B1's, B2's and B3's numbers at a rank's shapes; each
+path's own counts are in its line), the
 card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``.  Nothing is caught: any failure exits
 non-zero before that line.  Without a CUDA card it exits 1.  The script
@@ -3514,8 +3541,10 @@ def watch_windows(into: dict):
     import torch
 
     from gmmvi_tpu_torch.optimization import sample_db_decimate as dec
+    from gmmvi_tpu_torch.optimization import sample_window
 
-    window, bg = dec.get_newest_samples, dec.background
+    # the decimating window's background goes through sample_window's
+    window, bg = dec.get_newest_samples, sample_window.background
 
     def numpy(t):
         t = t.detach().cpu()
@@ -3541,11 +3570,11 @@ def watch_windows(into: dict):
                 ("log_weights", log_weights), ("log_dets", log_dets))})
         return bg(diagonal, means, inv_chols, log_weights, log_dets, samples)
 
-    dec.get_newest_samples, dec.background = recording_window, \
-        recording_background
+    dec.get_newest_samples = recording_window
+    sample_window.background = recording_background
 
     def undo():
-        dec.get_newest_samples, dec.background = window, bg
+        dec.get_newest_samples, sample_window.background = window, bg
     return undo
 
 
@@ -3851,6 +3880,609 @@ def slice12_input_rows(captured_dec, captured_runner12) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# Meshes: ranks of one torch.distributed group, all on the one card
+# ----------------------------------------------------------------------
+# M1-M7: (steps, ranks, backend); every meshed path runs its ranks on
+# cuda:0 (NCCL refuses two ranks on one device, so gloo, which has
+# all_reduce and all_gather for CUDA tensors; NCCL at world size 1)
+MESH_PATHS = {"M1": (30, 2, "gloo"), "M2": (30, 2, "gloo"),
+              "M3": (40, 2, "gloo"), "M4": (10, 4, "gloo"),
+              "M5": (20, 2, "gloo"), "M6": (150, 2, "gloo"),
+              "M7": (10, 1, "nccl")}
+# the gmm20 runner on a data mesh: 4 slots so that VIPS outgrows them (the
+# check before iteration 120 grows them to 16), a checkpoint after
+# iteration 124, resumed in fresh ranks and held equal to the bit at 149
+MESH_RUNNER_SLOTS, MESH_CKPT_AT = 4, 125
+# the sharded paths: step 1 held against the sharded database's [2, ...]
+# form run in one process from the same draws
+SHARDED_MESH_PATHS = ("M2", "M3", "M5")
+# the kernels each rank holds against their plain versions on the inputs
+# of its last launch (per call size), after the counted steps
+RANK_INPUT_KERNELS = {
+    "M3": ("density_pack", "densities", "background_logpdf", "more_grams"),
+    "M5": ("densities_large", "density_grads_large", "stein_smom")}
+MESH_TIMEOUT_S = 600
+MESH_KERNELS = {
+    "M1": ("density_pack", "densities", "tr_search"),
+    "M2": ("density_pack", "densities", "tr_search"),
+    "M3": ("density_pack", "densities", "background_logpdf", "more_grams"),
+    "M4": ("density_pack", "densities", "tr_search"),
+    "M5": ("densities_large", "density_grads_large", "stein_smom"),
+    "M6": ("density_pack", "densities", "tr_search", "background_logpdf",
+           "mixture_logpdf"),
+    "M7": ("density_pack", "densities", "tr_search"),
+}
+
+
+MESH_TPU = {"M1": {"data_shards": 2, "db_layout": "global"},
+            "M2": {"data_shards": 2}, "M3": {"data_shards": 2},
+            "M4": {"data_shards": 2, "comp_shards": 2, "db_layout": "global"},
+            "M5": {"data_shards": 2}, "M6": {"data_shards": 2},
+            "M7": {"data_shards": 1, "db_layout": "global"}}
+
+
+def mesh_config(path: str, meshed: bool = True) -> dict:
+    """The config of mesh path ``path`` (without ``target_fn``): the
+    flagship SAMTRON on the global ring (M1, M4), the flagship SAMTRON and
+    ZAMTRUX with ``db_layout: auto`` (sharded on a data mesh: M2, M3),
+    stm300 (M5), the gmm20 runner (M6), the flagship SAMTRON with
+    ``data_shards: 1`` (M7); with ``meshed`` False the same run unmeshed
+    on the global ring (the references of step 1)."""
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
+
+    if path == "M5":
+        cfg = get_default_config("SAMTRON", "stm300")
+    elif path == "M6":
+        cfg = runner_config(MESH_RUNNER_SLOTS)
+    else:
+        cfg = flagship_config(codename="ZAMTRUX" if path == "M3"
+                              else "SAMTRON")
+    tpu = MESH_TPU[path] if meshed else {"db_layout": "global"}
+    return update_config(cfg, {"tpu": tpu})
+
+
+def mesh_gmmvi(path: str, dev, meshed: bool = True):
+    """GMMVI of ``path`` through ``GMMVI.build_from_config`` (its mesh from
+    the config's ``tpu`` section, inside a process group; unmeshed with
+    ``meshed`` False)."""
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
+        make_target
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg = mesh_config(path, meshed)
+    if path != "M5":
+        cfg["target_fn"] = make_target(num_dimensions=D,
+                                       harder_setting=False, seed=0,
+                                       device=dev)
+    target, model, meta = init_experiment(cfg, device=dev)
+    return GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+
+
+def _np_draws(draws) -> dict:
+    import dataclasses
+
+    return {f.name: None if getattr(draws, f.name) is None
+            else getattr(draws, f.name).cpu().numpy()
+            for f in dataclasses.fields(draws)}
+
+
+def _torch_draws(named: dict, dev):
+    import torch
+
+    from gmmvi_tpu_torch.optimization.gmmvi import StepDraws
+
+    return StepDraws(**{k: None if v is None else torch.as_tensor(
+        v, device=dev) for k, v in named.items()})
+
+
+def _window_arrays(win) -> dict:
+    return {name: getattr(win, name).cpu().numpy() for name in (
+        "samples", "mapping", "target_lnpdfs", "target_grads",
+        "background_log_pdfs", "valid", "sample_iters")}
+
+
+def capture_first_window(into: dict):
+    """Keep the window of the first sharded-database step (its
+    ``get_newest_samples_fused``) in ``into``; returns the undo."""
+    from gmmvi_tpu_torch.optimization import sample_db_sharded as shd
+
+    fn = shd.get_newest_samples_fused
+
+    def call(*args, **kw):
+        win, pack = fn(*args, **kw)
+        into.setdefault("window", _window_arrays(win))
+        return win, pack
+
+    shd.get_newest_samples_fused = call
+    return lambda: setattr(shd, "get_newest_samples_fused", fn)
+
+
+def capture_first_more_fit(into: dict):
+    """Keep the Gram and right-hand side of MORE's first fit (the
+    all-reduced sums of every rank's B8 partials on a mesh) in ``into``
+    as numpy; returns the undo."""
+    from gmmvi_tpu_torch.optimization import ng_estimators
+
+    fn = ng_estimators.solve_quadratic_normal_eqs
+
+    def call(gram, rhs, *args, **kw):
+        if "gram" not in into:
+            into.update(gram=gram.cpu().numpy(), rhs=rhs.cpu().numpy())
+        return fn(gram, rhs, *args, **kw)
+
+    ng_estimators.solve_quadratic_normal_eqs = call
+    return lambda: setattr(ng_estimators, "solve_quadratic_normal_eqs", fn)
+
+
+def compare_more_fits(got: dict, want: dict) -> dict:
+    """The reduced Gram and right-hand side of a meshed step against those
+    of the same step in one process: each component's largest error over
+    its largest entry, held to B8's bar 2e-5 (``measure_more``)."""
+    import numpy as np
+
+    rel = {}
+    for name in ("gram", "rhs"):
+        k = want[name].shape[0]
+        w = want[name].reshape(k, -1).astype(np.float64)
+        g = got[name].reshape(k, -1).astype(np.float64)
+        scale = np.maximum(np.abs(w).max(1), 1e-30)
+        rel[name] = float((np.abs(g - w).max(1) / scale).max())
+    return {"more_fit_rel_err": rel,
+            "more_fit_ok": max(rel.values()) <= 2e-5}
+
+
+def mesh_steps(step, steps: int, state_of):
+    """``steps`` calls of ``step(i)``, each ending in a synchronize, the
+    launch counters and the collective counters set to 0 just before and
+    read just after, every collective timed (``PhaseTimers``), and the
+    replicated state (``state_of()``) held equal on every rank after every
+    step.  Returns (step seconds, launches, collectives, bytes, each
+    step's seconds in collectives)."""
+    import torch
+
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.parallel import reduce
+    from gmmvi_tpu_torch.parallel.mesh import check_replicated
+    from gmmvi_tpu_torch.utils.profiling import PhaseTimers
+
+    timers = PhaseTimers()
+    reduce.TIMERS = timers
+    reduce.reset_stats()
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    step_s, coll_s = [], []
+    try:
+        for i in range(steps):
+            before = timers.totals["collectives"]
+            t0 = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            coll_s.append(timers.totals["collectives"] - before)
+            check_replicated(state_of())
+    finally:
+        reduce.TIMERS = None
+    return (step_s, dict(cuda.LAUNCHES), reduce.STATS["collectives"],
+            reduce.STATS["bytes"], coll_s)
+
+
+def mesh_rank(rank: int, nprocs: int, path: str, work: str) -> None:
+    """One rank of mesh path ``path`` on cuda:0; its record goes to
+    ``work``/rank<r>.json (and rank 0's gathered state after step 1 to
+    ``work``/state1.npz, each rank's first window to
+    ``work``/window<r>.npz where asked)."""
+    import numpy as np
+    import torch
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch.device import resolve_device
+    from gmmvi_tpu_torch.parallel import reduce
+
+    torch.cuda.set_device(0)
+    dev = resolve_device("cuda")
+    work = Path(work)
+    steps = MESH_PATHS[path][0]
+    rec: dict = {"rank": rank}
+    if path == "M6":
+        rec.update(mesh_runner_rank(rank, dev, work))
+    else:
+        gmmvi = mesh_gmmvi(path, dev)
+        first = work / "draws0.npz"
+        draws0 = None
+        if first.exists():
+            with np.load(first, allow_pickle=True) as z:
+                draws0 = _torch_draws(z["draws"].item(), dev)
+        window: dict = {}
+        undo = capture_first_window(window) if path == "M2" else None
+        captured: dict = {}
+        fit1: dict = {}
+        undos = (capture_last_inputs(captured)
+                 + capture_density_inputs(captured, path)
+                 + [capture_first_more_fit(fit1)] if path == "M3"
+                 else capture_large_d_inputs(captured) if path == "M5"
+                 else [])
+        after1: dict = {}
+        target = gmmvi.target_distribution
+
+        def step(i):
+            gmmvi.train_iter(draws0 if i == 0 else None)
+            if i == 0:
+                with reduce.scope(gmmvi.mesh):
+                    after1.update(gmmvi_tpu_torch.gathered_state_to_numpy(
+                        gmmvi.state))
+                rec["elbo_after_1"] = elbo(gmmvi.state.model, target)[0]
+
+        step_s, launches, coll, nbytes, coll_s = mesh_steps(
+            step, steps, lambda: gmmvi.state)
+        for undo_capture in undos:
+            undo_capture()
+        if undos:
+            rec["kernel_rows"] = rank_input_rows(captured, path, rank,
+                                                 nprocs)
+        if undo is not None:
+            undo()
+            np.savez(work / f"window{rank}.npz", **window["window"])
+        if rank == 0:
+            np.savez(work / "state1.npz", **after1)
+            if fit1:
+                np.savez(work / "more1.npz", **fit1)
+        rec.update(
+            layout=type(gmmvi.state.db).__name__,
+            elbo_end=elbo(gmmvi.state.model, target)[0],
+            fevals=int(gmmvi.state.db.num_samples_written),
+            num_active=int(gmmvi.state.model.num_active),
+            state_finite=model_finite(gmmvi.state), step_s=step_s,
+            launches=launches, collectives=coll, bytes=nbytes,
+            collectives_s=coll_s)
+    with open(work / f"rank{rank}.json", "w") as fh:
+        json.dump(rec, fh)
+
+
+def mesh_runner_rank(rank: int, dev, work: Path) -> dict:
+    """M6 in one rank: the gmm20 runner from its config (``tpu:
+    {data_shards: 2}``), ``iterate_and_log`` for n = 0..149 with a
+    checkpoint after n = 124; fresh ranks' runner loads it and steps
+    n = 125..149, held equal to the bit to the unbroken run."""
+    import numpy as np
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch.parallel import reduce
+
+    steps = MESH_PATHS["M6"][0]
+    runner = build_runner(dev, mesh_config("M6"))
+    outs = []
+
+    def step(i):
+        outs.append(runner.iterate_and_log(i))
+        if i == MESH_CKPT_AT - 1:
+            runner.save_checkpoint(str(work / "m6.npz"))
+
+    step_s, launches, coll, nbytes, coll_s = mesh_steps(
+        step, steps, lambda: runner.gmmvi.state)
+    fresh = build_runner(dev, mesh_config("M6"))
+    import torch.distributed as dist
+
+    dist.barrier()
+    fresh.load_checkpoint(str(work / "m6.npz"))
+    for i in range(MESH_CKPT_AT, steps):
+        fresh.iterate_and_log(i)
+    with reduce.scope(runner.gmmvi.mesh):
+        a = gmmvi_tpu_torch.gathered_state_to_numpy(runner.gmmvi.state)
+        b = gmmvi_tpu_torch.gathered_state_to_numpy(fresh.gmmvi.state)
+    resumed_equal = set(a) == set(b) and all(
+        np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+    evals = [o for o in outs if "-elbo" in o]
+    return dict(
+        layout=type(runner.gmmvi.state.db).__name__,
+        max_components=runner.gmmvi.state.model.max_components,
+        elbo_after_1=-evals[0]["-elbo"], elbo_end=-evals[-1]["-elbo"],
+        fevals=outs[-1]["num_samples"], num_active=outs[-1][
+            "num_components"],
+        state_finite=model_finite(runner.gmmvi.state)
+        and all(np.isfinite(o["max_weight"]) for o in outs),
+        resumed_equal=resumed_equal, step_s=step_s, launches=launches,
+        collectives=coll, bytes=nbytes, collectives_s=coll_s)
+
+
+def measure_rank_inputs(captured: dict, path: str, rank: int) -> dict:
+    """Every kernel of ``RANK_INPUT_KERNELS[path]`` once more on the inputs
+    of its last launch in this rank (per call size), against its plain
+    version at the bars of the kernel phase (``measure_density``,
+    ``measure_background``, ``measure_more``, ``measure_large_density``,
+    ``measure_large_grads``, ``measure_stein``).  Returns per kernel, per
+    "path rank r [entry] K=.. N=..", the row (with ``ok``)."""
+    out: dict = {}
+    at = f"{path} rank {rank}"
+    for key, args in sorted(captured.items(), key=lambda kv: str(kv[0])):
+        name = key[0] if isinstance(key, tuple) else key
+        if name == "background_logpdf":
+            row = measure_background(args)
+            label = f"{at} U={row['rows']} N={row['samples']}"
+        elif name in ("density_pack", "densities"):
+            row = measure_density(name, args)
+            label = f"{at} K={row['components']} N={row['samples']}"
+        elif name == "more_grams":
+            row = measure_more(args)
+            label = f"{at} K={row['components']} N={row['samples']}"
+        elif name in ("densities_large", "mixture_logpdf_large"):
+            row = measure_large_density(name, args)
+            label = f"{at} {name} K={row['rows']} N={row['samples']}"
+            name = "densities_large"
+        elif name == "density_grads_large":
+            row = measure_large_grads(args)
+            label = f"{at} K={row['components']} N={row['samples']}"
+        else:
+            row = measure_stein(args)
+            label = f"{at} K={row['components']} N={row['samples']}"
+        out.setdefault(name, {})[label] = {
+            f: row[f] for f in PATH_FIELDS + ("ok",) if f in row}
+    missing = set(RANK_INPUT_KERNELS[path]) - set(out)
+    if missing:
+        raise AssertionError(f"{path} rank {rank}: no launch of "
+                             f"{sorted(missing)} recorded")
+    return out
+
+
+def rank_input_rows(captured: dict, path: str, rank: int, nprocs: int
+                    ) -> dict:
+    """:func:`measure_rank_inputs` in each rank in turn (the others wait
+    at a barrier, so the card times one rank's kernels at a time)."""
+    import torch.distributed as dist
+
+    rows: dict = {}
+    for r in range(nprocs):
+        if r == rank:
+            rows = measure_rank_inputs(captured, path, rank)
+        dist.barrier()
+    return rows
+
+
+def mesh_reference(dev, work: Path) -> dict:
+    """The unmeshed flagship SAMTRON on the card (global ring): the draws
+    of its first step (saved for M1 and M4; M7's fresh generator draws the
+    same) and its state after it."""
+    import numpy as np
+
+    import gmmvi_tpu_torch
+
+    gmmvi = mesh_gmmvi("M1", dev, meshed=False)
+    draws = gmmvi.draw(0)
+    np.savez(work / "draws0.npz", draws=np.asarray(_np_draws(draws),
+                                                   dtype=object))
+    gmmvi.train_iter(draws)
+    return gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+
+
+def mesh_sharded_reference(dev, path: str, work: Path):
+    """The first step of sharded path ``path`` (M2, M3, M5) with the
+    sharded database's ``[2, ...]`` form in one process (no mesh, no
+    collective: every sum over all the rows at once), from its generator's
+    draws (saved for the ranks): the window it gathers, its state after
+    the step and MORE's first Gram and right-hand side (M3; else empty)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch.optimization import sample_db_sharded as shd
+
+    gmmvi = mesh_gmmvi(path, dev, meshed=False)
+    db = gmmvi.state.db
+    gmmvi.state.db = shd.create_sharded_db(
+        dim=db.samples.shape[-1], max_components=db.max_components,
+        capacity=db.capacity, dist_ring_iters=db.ring_iters,
+        reservoir_capacity=db.reservoir_capacity, n_shards=2, device=dev)
+    del db
+    draws = gmmvi.draw(0)
+    np.savez(work / "draws0.npz", draws=np.asarray(_np_draws(draws),
+                                                   dtype=object))
+    window: dict = {}
+    fit1: dict = {}
+    undos = [capture_first_window(window), capture_first_more_fit(fit1)]
+    gmmvi.train_iter(draws)
+    for undo in undos:
+        undo()
+    state = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+    del gmmvi, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    return window["window"], state, fit1
+
+
+def compare_windows(path_dir: Path, want: dict, ranks: int) -> dict:
+    """Each rank's first window against its block of the one-process
+    ``[P, ...]`` form's: samples, masks, slots and iterations exactly,
+    target values and backgrounds at the one-step bar."""
+    import numpy as np
+
+    w_l = want["valid"].shape[0] // ranks
+    worst, exact = 0.0, True
+    for r in range(ranks):
+        with np.load(path_dir / f"window{r}.npz") as z:
+            got = dict(z)
+        block = {k: v[r * w_l:(r + 1) * w_l] for k, v in want.items()}
+        for name in ("samples", "mapping", "valid", "sample_iters"):
+            exact &= bool(np.array_equal(got[name], block[name]))
+        v = block["valid"]
+        cmp_ = compare_states(
+            {k: got[k][v] for k in ("target_lnpdfs", "target_grads",
+                                    "background_log_pdfs")},
+            {k: block[k][v] for k in ("target_lnpdfs", "target_grads",
+                                      "background_log_pdfs")}, 1e-4, 1e-5)
+        worst = max(worst, cmp_["worst"][1])
+    return {"window_exact": exact, "window_worst_of_bar": worst,
+            "window_rows_per_rank": w_l}
+
+
+def mesh_phase(dev, path: str, work_root: Path, ref1=None) -> dict:
+    """Mesh path ``path`` in ``ranks`` fresh processes on the card (spawn,
+    a join timeout, one CPU thread each), then its line: ranks, backend,
+    layout, steps and median step ms, fevals, the ELBO after step 1 and
+    at the end, collectives and bytes per step, the ``PhaseTimers`` split
+    (median ms of a step in collectives, and in the rest; steps after the
+    first, each timed collective after a synchronize of the card),
+    launches per step per rank, and the checks of the path."""
+    import shutil
+
+    import numpy as np
+
+    from gmmvi_tpu_torch.parallel.mesh import spawn
+
+    steps, ranks, backend = MESH_PATHS[path]
+    work = work_root / path
+    work.mkdir(parents=True, exist_ok=True)
+    out: dict = {"phase": "mesh", "path": path, "ranks": ranks,
+                 "backend": backend, "steps": steps, "device": "cuda:0"}
+    want_window, want_fit = None, None
+    if path in ("M1", "M4"):
+        shutil.copy(work_root / "ref" / "draws0.npz", work / "draws0.npz")
+    if path in SHARDED_MESH_PATHS:
+        want_window, ref1, want_fit = mesh_sharded_reference(dev, path,
+                                                             work)
+    t0 = time.perf_counter()
+    spawn(mesh_rank, ranks, backend, args=(path, str(work)),
+          timeout_s=MESH_TIMEOUT_S)
+    out["wall_s"] = time.perf_counter() - t0
+    recs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(ranks)]
+    r0 = recs[0]
+    step_s, coll_s = r0["step_s"], r0["collectives_s"]
+    compute_s = [a - b for a, b in zip(step_s, coll_s)]
+    out.update(
+        layout=r0["layout"], median_step_ms=statistics.median(
+            step_s[1:]) * 1e3, first_step_s=step_s[0], fevals=r0["fevals"],
+        num_active=r0["num_active"], elbo_after_1=r0["elbo_after_1"],
+        elbo_end=r0["elbo_end"],
+        collectives_per_step=r0["collectives"] / steps,
+        bytes_per_step=r0["bytes"] / steps,
+        timers_median_ms={
+            "collectives": statistics.median(coll_s[1:]) * 1e3,
+            "rest": statistics.median(compute_s[1:]) * 1e3},
+        launches_per_step_per_rank=[
+            {k: v / steps for k, v in rec["launches"].items() if v}
+            for rec in recs],
+        hash_checked_steps=steps,
+        note="ranks share one card: no scaling is measured")
+    failures = []
+    if not all(rec["state_finite"] for rec in recs):
+        failures.append("a non-finite state")
+    for name in MESH_KERNELS[path]:
+        if any(rec["launches"][name] <= 0 for rec in recs):
+            failures.append(f"{name} not launched on every rank")
+    rank_rows: dict = {}
+    for rec in recs:
+        for name, labelled in rec.get("kernel_rows", {}).items():
+            for label, row in labelled.items():
+                emit({"phase": "kernel_on_mesh_rank_inputs", "path": path,
+                      "rank": rec["rank"], "name": name, "label": label,
+                      **row})
+                if not row["ok"]:
+                    failures.append(f"{name} disagrees with its plain "
+                                    f"version on {label}")
+                rank_rows.setdefault(name, {})[label] = {
+                    f: row[f] for f in PATH_FIELDS if f in row}
+    out["rank_input_rows"] = rank_rows
+    if path in ("M1", "M4", "M7") + SHARDED_MESH_PATHS:
+        with np.load(work / "state1.npz") as z:
+            got = dict(z)
+        cmp_ = compare_states(got, ref1, 1e-4, 1e-5)
+        out.update(step1_worst_of_bar=cmp_["worst"],
+                   step1_missed=cmp_["missed"],
+                   step1_bits_equal=all(np.array_equal(
+                       got[k], ref1[k], equal_nan=True) for k in ref1),
+                   step1_fevals=int(got["db.num_samples_written"]),
+                   unmeshed_step1_fevals=int(ref1["db.num_samples_written"]))
+        if cmp_["missed"] or out["step1_fevals"] != \
+                out["unmeshed_step1_fevals"]:
+            failures.append("step 1 differs from the unmeshed step")
+        if path in SHARDED_MESH_PATHS:
+            out["step1_reference"] = "the [2, ...] form in one process"
+    if path == "M3":
+        # step 1's fit fails at MORE's starting ridge (1e-12) on both
+        # sides, so the state after it does not read MORE; its reduced Gram
+        # and right-hand side are held instead (later states cannot be:
+        # from the first accepted fit on, rounding decides the fitted model)
+        with np.load(work / "more1.npz") as z:
+            out.update(compare_more_fits(dict(z), want_fit))
+        if not out["more_fit_ok"]:
+            failures.append("MORE's reduced Gram differs from the one-process "
+                            "form's")
+    if path == "M2":
+        out.update(compare_windows(work, want_window, ranks))
+        if not (out["window_exact"] and out["window_worst_of_bar"] <= 1.0):
+            failures.append("the per-rank windows differ from the [P, ...] "
+                            "form's")
+    if path in ("M2", "M3", "M5") and out["layout"] != \
+            "ShardedSampleDbState":
+        failures.append(f"layout {out['layout']}, not sharded")
+    if path in ("M2", "M3", "M5", "M6") and not (
+            out["elbo_end"] > out["elbo_after_1"]):
+        failures.append("the ELBO did not rise")
+    if path == "M6":
+        out.update(resumed_bits_equal=r0["resumed_equal"],
+                   grown_to=r0["max_components"])
+        if not r0["resumed_equal"]:
+            failures.append("the resumed run differs from the unbroken one")
+        if r0["max_components"] <= MESH_RUNNER_SLOTS:
+            failures.append("the capacity did not grow")
+    out["ok"] = not failures
+    out["failures"] = failures
+    emit({k: v for k, v in out.items() if k != "rank_input_rows"})
+    if failures:
+        raise AssertionError(f"mesh path {path}: {failures}")
+    return out
+
+
+def mesh_phases(dev) -> dict:
+    """M1-M7 in order (the unmeshed reference step first).  The ranks
+    share the card with this process, so its cached blocks are given back
+    first (earlier paths leave tens of GB cached: stm1024 peaks at 44.7
+    GB)."""
+    import gc
+    import shutil
+
+    import torch
+
+    gc.collect()
+    before = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_setup", "parent_reserved_mb_before": before / 2 ** 20,
+          "parent_reserved_mb_after": torch.cuda.memory_reserved(dev)
+          / 2 ** 20})
+    work_root = BUILD_DIR / "mesh"
+    shutil.rmtree(work_root, ignore_errors=True)
+    (work_root / "ref").mkdir(parents=True)
+    ref1 = mesh_reference(dev, work_root / "ref")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {path: mesh_phase(dev, path, work_root, ref1)
+            for path in MESH_PATHS}
+
+
+def mesh_kernel_rows(dev) -> dict:
+    """B1 and B2 at a data rank's rows of the flagship window (N = 4,800
+    of 9,600 at P = 2) and B3's fused search on a comp rank's slice (24 of
+    48 components), each against its plain version with its bound, as
+    phase 3 measures them at the full shapes."""
+    args = density_inputs(dev, n=KMAX * N_DES // 2)
+    rows = {name: measure_density(name, args)
+            for name in ("density_pack", "densities")}
+    sargs = tr_search_inputs(dev)
+    half = KMAX // 2
+    sliced = (type(sargs[0])(*[t[:half] for t in sargs[0]]),
+              *[t[:half].contiguous() for t in sargs[1:]])
+    rows["tr_search"] = measure_tr_search(sliced)
+    for name, row in rows.items():
+        emit({"phase": "kernel_rank_shape", "name": name, **row})
+        if not row["ok"]:
+            raise AssertionError(f"{name} at a rank's shape disagrees with "
+                                 "its plain version")
+    return rows
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the wine BNN seeds its batch order from hash(("bnn", seed)), as
@@ -3943,7 +4575,21 @@ def main() -> int:
             on_paths.setdefault(name, {}).update(labels)
     runner_input_rows(captured_runner)
     by_path["SAMTRON-diagonal"] = diagonal_phase(dev)
+    mesh_lines = mesh_phases(dev)
+    rank_rows = mesh_kernel_rows(dev)
+    for line in mesh_lines.values():
+        for name, labelled in line["rank_input_rows"].items():
+            on_paths.setdefault(name, {}).update(labelled)
     for r in rows:
+        r["mesh_launches_per_step_per_rank"] = {
+            path: [per_rank.get(r["name"], 0.0)
+                   for per_rank in line["launches_per_step_per_rank"]]
+            for path, line in mesh_lines.items()}
+        if r["name"] in rank_rows:
+            got = rank_rows[r["name"]]
+            r["rank_shape"] = {k: got[k] for k in (
+                "samples", "components", "d", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by") if k in got}
         if r["name"] in on_paths:
             r["paths"] = on_paths[r["name"]]
         # the flagship's count for B1-B3, the reuse path's for B4 and B8,
@@ -3954,7 +4600,8 @@ def main() -> int:
         r["launches"] = by_path[path][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "responsible_pairs",
-            "library_ms", "bound_tc_ms", "paths")
+            "library_ms", "bound_tc_ms", "paths",
+            "mesh_launches_per_step_per_rank", "rank_shape")
     emit({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

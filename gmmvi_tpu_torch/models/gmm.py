@@ -91,6 +91,16 @@ class GmmState:
         return dataclasses.replace(self, **kw)
 
 
+def slice_components(state: GmmState, lo: int, hi: int) -> GmmState:
+    """Slots ``lo:hi`` as a mixture of their own: its active slots are
+    those of ``state`` (active slots are a prefix)."""
+    return GmmState(
+        log_weights=state.log_weights[lo:hi], means=state.means[lo:hi],
+        chols=state.chols[lo:hi], inv_chols=state.inv_chols[lo:hi],
+        num_active=torch.clamp(state.num_active - lo, 0, hi - lo),
+        diagonal=state.diagonal)
+
+
 def invert_chol(chols: torch.Tensor, diagonal: bool = False
                 ) -> torch.Tensor:
     """Inverses of (batched) lower-triangular factors; reciprocals when

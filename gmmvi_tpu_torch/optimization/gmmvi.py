@@ -36,10 +36,31 @@ whose state holds a NaN is run again under :class:`NanCheck`, which
 raises ``FloatingPointError`` at the first operation that made one).  With
 ``num_prior_samples > 0`` and a configured prior, every step draws that
 many prior samples, evaluates the target on them and adds them to the add
-heuristic's candidates.  Meshes raise ``NotImplementedError``.
+heuristic's candidates.
+
+With a ``DeviceMesh`` (``mesh=``, or ``tpu.data_shards`` /
+``tpu.comp_shards`` through ``parallel.mesh.mesh_from_config``) the step
+runs in every rank of a ``torch.distributed`` group: the model and the
+optimizer state stay replicated and equal to the bit, every rank draws the
+same :class:`StepDraws` (as the JAX package's partitionable PRNG gives the
+same values sharded or not), evaluates the target on its block of the
+proposal's rows and takes densities, backgrounds and the estimator's and
+weight update's sums over its rows of the window, whose per-component
+partials are reduced over ``data`` (``parallel/reduce.py`` makes every
+collective).  ``tpu.db_layout`` picks the database: ``global`` (the
+replicated ring, whose write all-gathers the target's outputs) or
+``sharded`` (a ring per rank, ``sample_db_sharded``); ``auto`` takes
+``sharded`` on a data mesh where the proposal batch divides by its size
+and the eviction is not ``decimate``, as the JAX package does.  On a
+``("data", "comp")`` mesh every comp rank takes a slice of the components
+through the stepsizes, the estimate and the component update (kernel B3's
+search on the slice), and the slices are gathered back.  On the
+host-target path each rank evaluates its own valid rows, in a bucket of
+the next power of two of the largest rank's count.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import warnings
 from dataclasses import dataclass
@@ -66,9 +87,12 @@ from gmmvi_tpu_torch.optimization import weight_updaters as w_ops
 from gmmvi_tpu_torch.optimization.component_adaptation import (
     AdaptationState, VipsConfig)
 from gmmvi_tpu_torch.optimization import sample_db_decimate as dec_ops
+from gmmvi_tpu_torch.optimization import sample_db_sharded as shd_ops
 from gmmvi_tpu_torch.optimization.sample_selectors import SelectorConfig
 from gmmvi_tpu_torch.optimization.stepsize_adapters import \
     WeightStepsizeState
+from gmmvi_tpu_torch.parallel import reduce
+from gmmvi_tpu_torch.parallel.mesh import data_axis_size, mesh_from_config
 
 
 @dataclass
@@ -99,7 +123,11 @@ class StepDraws:
     False), db_u ``[S]`` uniform in [0, 1); add_a a 0-d uniform (an add).
     These three are read only when an add is due.  prior_eps ``[P, D]``
     standard normal: the prior samples, every step when
-    ``num_prior_samples`` P > 0 and a prior is configured."""
+    ``num_prior_samples`` P > 0 and a prior is configured.  A sharded
+    database (``tpu.db_layout: sharded``) over S shards takes a block per
+    shard: rand_slots and accept_u ``[S, B / S]``, db_perm ``[S, ceil(n /
+    S)]`` (each row from a permutation of its shard's reservoir slots) or
+    db_u ``[S, capacity]``.  On a mesh every rank is given the same draws."""
 
     eps: torch.Tensor
     rand_slots: Optional[torch.Tensor]
@@ -140,7 +168,46 @@ def _has_nan(state: "TrainState") -> bool:
                           state.adapt)
              for t in vars(part).values()
              if isinstance(t, torch.Tensor) and t.is_floating_point()]
-    return bool(torch.stack(flags).any())
+    # on a sharded database the ranks' states differ: all stop or none
+    return bool(reduce.data_max(torch.stack(flags).any()))
+
+
+# the meta-state leaves that steps 1-3 of an update may change
+_COMPONENT_META = ("stepsizes", "l2_regularizers", "num_received_updates",
+                   "last_etas")
+
+
+def _slice_meta(meta: MetaState, lo: int, hi: int) -> MetaState:
+    """Slots ``lo:hi`` of every per-component leaf of ``meta``."""
+    return meta.replace(**{
+        f.name: getattr(meta, f.name)[lo:hi]
+        for f in dataclasses.fields(meta)
+        if isinstance(getattr(meta, f.name), torch.Tensor)
+        and getattr(meta, f.name).ndim > 0})
+
+
+def _gather_components(model: GmmState, meta: MetaState, model_c: GmmState,
+                       meta_c: MetaState):
+    """``model`` and ``meta`` with the components that every comp rank
+    updated on its slice: the changed leaves, packed by dtype, in one
+    all-gather over ``comp`` each."""
+    kmax = model.max_components
+    leaves = {("model", n): getattr(model_c, n)
+              for n in ("means", "chols", "inv_chols")}
+    leaves.update({("meta", n): getattr(meta_c, n) for n in _COMPONENT_META})
+    out = {}
+    for dtype in {t.dtype for t in leaves.values()}:
+        keys = [k for k, t in leaves.items() if t.dtype == dtype]
+        flat = [leaves[k].reshape(leaves[k].shape[0], -1) for k in keys]
+        full = reduce.comp_gather(torch.cat(flat, 1), kmax)
+        for k, part in zip(keys, torch.split(
+                full, [f.shape[1] for f in flat], dim=1)):
+            out[k] = part.reshape(
+                (kmax,) + tuple(leaves[k].shape[1:])).contiguous()
+    return (model.replace(**{n: t for (o, n), t in out.items()
+                             if o == "model"}),
+            meta.replace(**{n: t for (o, n), t in out.items()
+                            if o == "meta"}))
 
 
 class GMMVI:
@@ -157,7 +224,13 @@ class GMMVI:
                  vips_cfg: Optional[VipsConfig], seed: int,
                  device: torch.device, prior_mean=None, prior_cov_diag=None,
                  trust_region_search: str = "bracket",
-                 trust_region_grid_size: int = 32, debug_nans: bool = False):
+                 trust_region_grid_size: int = 32, debug_nans: bool = False,
+                 mesh=None):
+        if mesh is not None and "data" not in (mesh.mesh_dim_names or ()):
+            raise ValueError(
+                f"mesh axes must include 'data' (got {mesh.mesh_dim_names}); "
+                "use parallel.mesh.data_mesh or hybrid_mesh")
+        self.mesh = mesh
         self.target_distribution = target_distribution
         self.state = initial_state
         self.temperature = float(temperature)
@@ -205,19 +278,30 @@ class GMMVI:
         draws = StepDraws(eps=torch.randn(eps_shape, generator=g, device=dev),
                           rand_slots=None, accept_u=None, mapping=mapping)
         if db.has_reservoir:
+            # a sharded database's draws are [P, B / P], a block per shard
+            shape = ((db.n_shards, b // db.n_shards) if db.row_sharded
+                     else (b,))
             draws.rand_slots = torch.randint(
-                0, db.reservoir_capacity, (b,), generator=g, device=dev,
+                0, db.reservoir_capacity, shape, generator=g, device=dev,
                 dtype=torch.int32)
-            draws.accept_u = torch.rand((b,), generator=g, device=dev)
+            draws.accept_u = torch.rand(shape, generator=g, device=dev)
         cfg = self.vips_cfg
         if cfg is not None and adapt_ops.add_is_due(cfg, iteration + 1):
-            if db.uses_reservoir:
+            n = cfg.num_database_samples
+            if db.uses_reservoir and db.row_sharded:
+                # each shard's candidates: a permutation of its slots
+                n_l = -(-n // db.n_shards)
+                draws.db_perm = torch.stack([
+                    torch.randperm(db.reservoir_capacity, generator=g,
+                                   device=dev)[:n_l]
+                    for _ in range(db.n_shards)])
+            elif db.uses_reservoir:
                 draws.db_perm = torch.randperm(
-                    db.reservoir_capacity, generator=g,
-                    device=dev)[:cfg.num_database_samples]
+                    db.reservoir_capacity, generator=g, device=dev)[:n]
             else:
-                draws.db_u = torch.rand((db.capacity,), generator=g,
-                                        device=dev)
+                shape = ((db.n_shards, db.capacity) if db.row_sharded
+                         else (db.capacity,))
+                draws.db_u = torch.rand(shape, generator=g, device=dev)
             draws.add_a = torch.rand((), generator=g, device=dev)
         if self.prior_mean is not None:
             draws.prior_eps = torch.randn(
@@ -274,23 +358,36 @@ class GMMVI:
     def _run_updates(self, model: GmmState, meta: MetaState,
                      wstep: WeightStepsizeState, window, pack):
         """Component and weight updates on the window, in the reference's
-        order; the weight update sees the updated components."""
+        order; the weight update sees the updated components.  On a
+        ``comp`` axis steps 1-3 take this rank's slice of the components
+        (``gmm_ops.slice_components``, :func:`_slice_meta`) and
+        :func:`_gather_components` puts the model and the meta-state
+        together again."""
+        kmax = model.max_components
+        lo, hi = reduce.comp_range(kmax)
+        sliced = (lo, hi) != (0, kmax)
+        model_c, meta_c = ((gmm_ops.slice_components(model, lo, hi),
+                            _slice_meta(meta, lo, hi)) if sliced
+                           else (model, meta))
         # 1. component stepsizes
         new_stepsizes = step_ops.COMPONENT_STEPSIZE_ADAPTERS[
-            self.component_stepsize_type](meta, self.component_stepsize_cfg)
-        meta = meta.replace(stepsizes=torch.where(model.mask, new_stepsizes,
-                                                  meta.stepsizes))
+            self.component_stepsize_type](meta_c,
+                                          self.component_stepsize_cfg)
+        meta_c = meta_c.replace(stepsizes=torch.where(
+            model_c.mask, new_stepsizes, meta_c.stepsizes))
         # 2. natural-gradient estimate
         est_kw = dict(
             use_self_normalized_importance_weights=self.estimator_cfg[
                 "use_self_normalized_importance_weights"],
             only_use_own_samples=self.estimator_cfg["only_use_own_samples"],
             pack=pack, newest_mask=window.newest_mask)
+        if sliced:
+            est_kw.update(comp_slice=(lo, hi))
         if self.estimator_type == "MORE":
             est = est_ops.more_estimate(
                 model, window.samples, window.valid, window.mapping,
                 window.background_log_pdfs, window.target_lnpdfs,
-                meta.l2_regularizers, **est_kw)
+                meta_c.l2_regularizers, **est_kw)
         else:
             est = est_ops.stein_estimate(
                 model, window.samples, window.valid, window.mapping,
@@ -301,9 +398,13 @@ class GMMVI:
         if self.updater_type == "trust-region":
             upd_kw.update(search=self.trust_region_search,
                           grid_size=self.trust_region_grid_size)
-        model, meta = upd_ops.UPDATERS[self.updater_type](
-            model, meta, est.expected_hessians_neg,
-            est.expected_gradients_neg, meta.stepsizes, **upd_kw)
+        model_c, meta_c = upd_ops.UPDATERS[self.updater_type](
+            model_c, meta_c, est.expected_hessians_neg,
+            est.expected_gradients_neg, meta_c.stepsizes, **upd_kw)
+        if sliced:
+            model, meta = _gather_components(model, meta, model_c, meta_c)
+        else:
+            model, meta = model_c, meta_c
         # 4. weight stepsize
         wstep = step_ops.WEIGHT_STEPSIZE_ADAPTERS[self.weight_stepsize_type](
             wstep, model, meta, self.weight_stepsize_cfg)
@@ -328,7 +429,12 @@ class GMMVI:
         in the order, that the JAX package gives it."""
         b, d = samples.shape
         idx = np.flatnonzero(valid.cpu().numpy())
-        bucket = min(1 << max(len(idx) - 1, 0).bit_length(), b)
+        n_valid = len(idx)
+        if reduce.data_size() > 1:
+            # every rank's bucket fits the largest rank's valid rows
+            n_valid = int(reduce.data_max(torch.tensor(
+                n_valid, device=samples.device)))
+        bucket = min(1 << max(n_valid - 1, 0).bit_length(), b)
         padded = np.zeros(bucket, np.int64)
         padded[:len(idx)] = idx
         dev = samples.device
@@ -345,10 +451,21 @@ class GMMVI:
 
     def _full_step(self, state: TrainState, draws: StepDraws) -> TrainState:
         prop = self._propose_phase(state, draws)
+        # every rank holds the whole proposal; the target sees its rows
+        rows, valid = reduce.rows(prop.samples), reduce.rows(prop.valid)
         if self.target_distribution.safe_for_jit:
-            lnpdfs, grads = self._eval_target(prop.samples)
+            lnpdfs, grads = self._eval_target(rows)
         else:
-            lnpdfs, grads = self._eval_valid_rows(prop.samples, prop.valid)
+            lnpdfs, grads = self._eval_valid_rows(rows, valid)
+        if state.db.row_sharded:
+            # each rank writes its own rows into its own shard
+            prop = prop._replace(samples=rows, valid=valid,
+                                 mapping=reduce.rows(prop.mapping))
+        else:
+            # a replicated database writes the whole batch
+            b = prop.samples.shape[0]
+            lnpdfs = reduce.gather_rows(lnpdfs, b)
+            grads = reduce.gather_rows(grads, b)
         prior_samples, prior_lnpdfs = self._prior_samples(draws)
         return self._update_phase(state, prop, lnpdfs, grads, draws,
                                   prior_samples, prior_lnpdfs)
@@ -413,16 +530,18 @@ class GMMVI:
     # ------------------------------------------------------------------
     def train_iter(self, draws: Optional[StepDraws] = None) -> None:
         """Advance one iteration, with ``draws`` or fresh generator draws
-        (made after any capacity growth, at the grown shapes)."""
-        self._maybe_grow()
-        if draws is None:
-            draws = self.draw(self.state.num_updates)
-        state = self._full_step(self.state, draws)
-        if self.debug_nans and _has_nan(state):
-            # the step again, op by op, to name where the NaN came from
-            with NanCheck():
-                self._full_step(self.state, draws)
-            raise FloatingPointError("NaN in the state after the step")
+        (made after any capacity growth, at the grown shapes).  On a mesh
+        every rank calls it, with the same draws."""
+        with reduce.scope(self.mesh):
+            self._maybe_grow()
+            if draws is None:
+                draws = self.draw(self.state.num_updates)
+            state = self._full_step(self.state, draws)
+            if self.debug_nans and _has_nan(state):
+                # the step again, op by op, to name where the NaN came from
+                with NanCheck():
+                    self._full_step(self.state, draws)
+                raise FloatingPointError("NaN in the state after the step")
         self.state = state
 
     def train_iters(self, n: int) -> None:
@@ -444,15 +563,19 @@ class GMMVI:
     def build_from_config(config: dict, target_distribution: LNPDF,
                           model: GmmState, meta: Optional[MetaState] = None,
                           seed: Optional[int] = None,
-                          device="cuda") -> "GMMVI":
+                          device="cuda", mesh=None) -> "GMMVI":
         """A GMMVI instance from a reference-schema config dict; ``model``
-        is a padded GmmState (see ``experiments.setup``) on ``device``."""
+        is a padded GmmState (see ``experiments.setup``) on ``device``.
+        ``mesh`` (a ``DeviceMesh``; by default the one ``tpu.data_shards``
+        / ``tpu.comp_shards`` ask for, or None) makes it a meshed run: call
+        it in every rank."""
         from gmmvi_tpu_torch.configs import validate_config
 
         dev = resolve_device(device)
         validate_config(config)
-        _check_supported(config)
         tpu_cfg = config.get("tpu", {}) or {}
+        if mesh is None:
+            mesh = mesh_from_config(tpu_cfg, device_type=dev.type)
         if model.device != dev:
             raise ValueError(f"model is on {model.device}, expected {dev}")
         kmax, d = model.max_components, model.num_dimensions
@@ -508,7 +631,20 @@ class GMMVI:
         if vips_cfg is not None and vips_cfg.num_database_samples > reservoir:
             vips_cfg = vips_cfg._replace(num_database_samples=reservoir)
         keep_samples = bool(config.get("use_sample_database", True))
-        if str(tpu_cfg.get("db_eviction", "ring")) == "decimate":
+        db_eviction = str(tpu_cfg.get("db_eviction", "ring"))
+        dist_ring_iters = int(tpu_cfg.get("dist_ring_iters", default_ring))
+        batch = kmax * n_des if selector_cfg.is_vips else n_des
+        if _db_layout(str(tpu_cfg.get("db_layout", "auto")), mesh,
+                      db_eviction, batch) == "sharded":
+            db = shd_ops.create_sharded_db(
+                dim=d, max_components=kmax, capacity=w_total,
+                dist_ring_iters=dist_ring_iters,
+                reservoir_capacity=reservoir,
+                n_shards=data_axis_size(mesh), n_local=1,
+                first_shard=mesh.get_local_rank("data"),
+                diagonal=model.diagonal, keep_samples=keep_samples,
+                device=dev)
+        elif db_eviction == "decimate":
             # the reference's decimation on overflow, as the JAX package
             # sizes it: every add appends <= num_active components and >=
             # num_active samples, so capacity + Kmax table rows suffice
@@ -523,8 +659,7 @@ class GMMVI:
         else:
             db = db_ops.create_sample_db(
                 dim=d, max_components=kmax, capacity=w_total,
-                dist_ring_iters=int(tpu_cfg.get("dist_ring_iters",
-                                                default_ring)),
+                dist_ring_iters=dist_ring_iters,
                 reservoir_capacity=reservoir, diagonal=model.diagonal,
                 keep_samples=keep_samples, device=dev)
         if not keep_samples:
@@ -570,25 +705,43 @@ class GMMVI:
                                                 "bracket")),
             trust_region_grid_size=int(tpu_cfg.get("trust_region_grid_size",
                                                    32)),
-            debug_nans=bool(tpu_cfg.get("debug_nans", False)))
+            debug_nans=bool(tpu_cfg.get("debug_nans", False)), mesh=mesh)
 
 
-# tpu.* settings whose other values select paths not ported yet
-_SUPPORTED_TPU = {
-    "db_layout": ("auto", "global"),
-}
-
-
-def _check_supported(config: dict) -> None:
-    """Raise NotImplementedError naming the first setting of ``config``
-    that the port does not have yet (every module of the codename matrix
-    is ported, for full and diagonal covariances)."""
-    tpu_cfg = config.get("tpu", {}) or {}
-    for key, allowed in _SUPPORTED_TPU.items():
-        if key in tpu_cfg and tpu_cfg[key] not in allowed:
-            raise NotImplementedError(
-                f"tpu.{key}: {tpu_cfg[key]!r} is not ported yet (the port "
-                f"has {allowed})")
-    for key in ("data_shards", "comp_shards"):
-        if int(tpu_cfg.get(key, 1) or 1) > 1:
-            raise NotImplementedError(f"tpu.{key}: meshes are not ported yet")
+def _db_layout(layout: str, mesh, db_eviction: str, batch: int) -> str:
+    """``global`` or ``sharded``, as the JAX package chooses: ``auto`` is
+    ``sharded`` on a data mesh where its preconditions hold (with a
+    warning where they do not), an explicit layout is checked."""
+    has_data = mesh is not None and "data" in (mesh.mesh_dim_names or ())
+    n_sh = data_axis_size(mesh) if has_data else 1
+    if layout == "auto":
+        if not has_data:
+            return "global"
+        if db_eviction == "decimate":
+            reason = ("tpu.db_eviction: decimate is a global store by "
+                      "definition")
+        elif batch % n_sh:
+            reason = (f"the proposal batch ({batch}) is not divisible by "
+                      f"the data-axis size ({n_sh})")
+        else:
+            return "sharded"
+        warnings.warn("tpu.db_layout: auto falls back to the global ring "
+                      f"(per-step batch all-gathers) — {reason}")
+        return "global"
+    if layout == "sharded":
+        if not has_data:
+            raise ValueError(
+                "tpu.db_layout: sharded requires a mesh with a 'data' axis "
+                "(set tpu.data_shards or pass mesh=)")
+        if db_eviction == "decimate":
+            raise ValueError(
+                "tpu.db_layout: sharded is incompatible with "
+                "tpu.db_eviction: decimate (the decimation parity mode is a "
+                "global store by definition)")
+        if batch % n_sh:
+            raise ValueError(
+                f"tpu.db_layout: sharded needs the proposal batch ({batch} "
+                f"= Kmax*n_des) divisible by the data-axis size ({n_sh}); "
+                "adjust desired_samples_per_component or "
+                "tpu.max_components")
+    return layout

@@ -36,19 +36,19 @@ keeps the diagonal of its quadratic term.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from gmmvi_tpu_torch.models.gmm import (DensityPack, GmmState, density_pack,
                                         log_densities_also_individual)
-from gmmvi_tpu_torch.models.gmm import diag_chunks
+from gmmvi_tpu_torch.models.gmm import diag_chunks, slice_components
 from gmmvi_tpu_torch.ops import stein as stein_ops
 from gmmvi_tpu_torch.ops.more import MAX_D as MORE_MAX_D
 from gmmvi_tpu_torch.ops.more import more_grams, more_grams_plain
 from gmmvi_tpu_torch.ops.quadratic import solve_quadratic_normal_eqs
-from gmmvi_tpu_torch.ops.stable import (NEG_INF, masked_logsumexp,
-                                        signed_weighted_logsumexp)
+from gmmvi_tpu_torch.ops.stable import NEG_INF
+from gmmvi_tpu_torch.parallel import reduce
 
 # elements of one [n, D, D] slab of the standard-IW Hessian's terms
 _STANDARD_IW_CHUNK = 1 << 24
@@ -67,16 +67,17 @@ def _diag_prec_times_diffs(model: GmmState, samples: torch.Tensor, lo: int,
     return inv * (inv * (samples[None, :, :] - model.means[lo:hi, None, :]))
 
 
-def _per_component_log_iw(model, comp_log_densities, background, sample_mask,
-                          mapping, only_use_own_samples, newest_mask):
-    """Raw log importance weights ``log q(x|o) - log bg(x)`` ``[Kmax, N]``
-    with their mask.  With ``only_use_own_samples`` each component sees only
-    its own newest samples, with log IW = 0."""
+def _per_component_log_iw(comp_log_densities, background, sample_mask,
+                          mapping, only_use_own_samples, newest_mask,
+                          first: int = 0):
+    """Raw log importance weights ``log q(x|o) - log bg(x)`` ``[K, N]``
+    (slots ``first`` on) with their mask.  With ``only_use_own_samples``
+    each component sees only its own newest samples, with log IW = 0."""
     log_iw = comp_log_densities - background[None, :]
     mask = sample_mask[None, :].expand(log_iw.shape)
     if only_use_own_samples:
         own = mapping[None, :] == torch.arange(
-            model.max_components, device=mapping.device)[:, None]
+            first, first + log_iw.shape[0], device=mapping.device)[:, None]
         if newest_mask is not None:
             own = own & newest_mask[None, :]
         log_iw = torch.zeros_like(log_iw)
@@ -85,10 +86,13 @@ def _per_component_log_iw(model, comp_log_densities, background, sample_mask,
 
 
 def _self_normalized(log_iw, mask):
-    """Self-normalized weights, normalized twice as in the reference."""
-    log_w = log_iw - masked_logsumexp(log_iw, mask=mask, dim=1, keepdim=True)
+    """Self-normalized weights, normalized twice as in the reference (the
+    normalizers over every rank's samples)."""
+    log_w = log_iw - reduce.data_masked_logsumexp(log_iw, mask=mask, dim=1,
+                                                  keepdim=True)
     w = torch.where(mask, torch.exp(log_w), 0.0)
-    return w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-38)
+    return w / torch.clamp(reduce.data_sum(w.sum(dim=1, keepdim=True)),
+                           min=1e-38)
 
 
 def _signed_lse_chunked(log_w: torch.Tensor, values_of, n: int,
@@ -99,7 +103,7 @@ def _signed_lse_chunked(log_w: torch.Tensor, values_of, n: int,
     chunk is the one-shot computation."""
     if n <= chunk:
         vals = values_of(0, n)
-        return signed_weighted_logsumexp(
+        return reduce.data_signed_weighted_logsumexp(
             log_w.reshape((n,) + (1,) * (vals.ndim - 1)), vals, dim=0)
 
     def combined(lo, hi):
@@ -109,8 +113,9 @@ def _signed_lse_chunked(log_w: torch.Tensor, values_of, n: int,
         return vals, torch.where(torch.isfinite(comb), comb, NEG_INF)
 
     spans = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
-    cmax = torch.stack([torch.amax(combined(lo, hi)[1], dim=0)
-                        for lo, hi in spans]).amax(dim=0)
+    cmax = reduce.data_max(torch.stack([torch.amax(combined(lo, hi)[1],
+                                                   dim=0)
+                                        for lo, hi in spans]).amax(dim=0))
     cmax_safe = torch.where(torch.isfinite(cmax), cmax, 0.0)
     total = 0.0
     for lo, hi in spans:
@@ -118,6 +123,7 @@ def _signed_lse_chunked(log_w: torch.Tensor, values_of, n: int,
         total = total + torch.sum(torch.where(
             torch.isfinite(comb),
             torch.sign(vals) * torch.exp(comb - cmax_safe), 0.0), dim=0)
+    total = reduce.data_sum(total)
     return torch.sign(total) * torch.exp(torch.log(torch.abs(total))
                                          + cmax_safe)
 
@@ -132,24 +138,25 @@ def _stein_standard_iw(model: GmmState, log_iw, mask, log_ratio_grads,
     they are made one component at a time, in chunks of samples, so the
     ``[Kmax, N, D]`` and ``[N, D, D]`` arrays are never formed whole."""
     n, d = samples.shape
-    counts = torch.clamp(mask.sum(dim=1, dtype=samples.dtype), min=1.0)
+    counts = torch.clamp(reduce.data_sum(mask.sum(dim=1, dtype=samples.dtype)),
+                         min=1.0)
     hess, grad = [], []
     if model.diagonal:
         # the elementwise terms g[n, d] ptd[n, d]
         for k in range(model.max_components):
             lw = torch.where(mask[k], log_iw[k], NEG_INF)[:, None]
-            grad.append(signed_weighted_logsumexp(
+            grad.append(reduce.data_signed_weighted_logsumexp(
                 lw, log_ratio_grads, dim=0) / counts[k])
             vals = log_ratio_grads * _diag_prec_times_diffs(
                 model, samples, k, k + 1)[0]
-            hess.append(signed_weighted_logsumexp(lw, vals, dim=0)
+            hess.append(reduce.data_signed_weighted_logsumexp(lw, vals, dim=0)
                         / counts[k])
         return torch.stack(hess), torch.stack(grad)
     lam = model.inv_chols.mT @ model.inv_chols                   # [K, D, D]
     chunk = max(1, _STANDARD_IW_CHUNK // (d * d))
     for k in range(model.max_components):
         lw = torch.where(mask[k], log_iw[k], NEG_INF)
-        grad.append(signed_weighted_logsumexp(
+        grad.append(reduce.data_signed_weighted_logsumexp(
             lw[:, None], log_ratio_grads, dim=0) / counts[k])
 
         def terms(lo, hi, k=k):
@@ -172,44 +179,51 @@ def stein_estimate(
     only_use_own_samples: bool = False,
     pack: Optional[DensityPack] = None,
     newest_mask: Optional[torch.Tensor] = None,
+    comp_slice: Optional[Tuple[int, int]] = None,
 ) -> NgEstimate:
     """Stein's-lemma estimate.  With self-normalized importance weights
     (normalized twice, as in the reference) the Hessian is taken in moment
     form and symmetrized (a diagonal model's: its diagonal, directly); with
     standard ones it is the reference's stable expectation, unsymmetrized
-    (:func:`_stein_standard_iw`)."""
+    (:func:`_stein_standard_iw`).  On a mesh the samples are this rank's
+    rows and every sum over them is reduced over ``data``; ``comp_slice``
+    ``(lo, hi)`` estimates slots ``lo:hi`` only (a ``comp`` rank's)."""
     if pack is None:
         pack = density_pack(model, samples)
     log_ratio_grads = target_grads - pack.model_grads             # [N, D]
+    lo, hi = comp_slice or (0, model.max_components)
+    part = model if comp_slice is None else slice_components(model, lo, hi)
 
     log_iw, mask = _per_component_log_iw(
-        model, pack.component_log_densities, background, sample_mask,
-        mapping, only_use_own_samples, newest_mask)
+        pack.component_log_densities[lo:hi], background, sample_mask,
+        mapping, only_use_own_samples, newest_mask, first=lo)
     if not use_self_normalized_importance_weights:
-        hess, grad = _stein_standard_iw(model, log_iw, mask,
+        hess, grad = _stein_standard_iw(part, log_iw, mask,
                                         log_ratio_grads, samples)
         return NgEstimate(-hess, -grad)
     w = _self_normalized(log_iw, mask)
 
-    grad = w @ log_ratio_grads                                    # [K, D]
+    grad = reduce.data_sum(w @ log_ratio_grads)                   # [K, D]
     if model.diagonal:
         n, d = samples.shape
-        hess = torch.cat([
-            torch.einsum("kn,nd,knd->kd", w[lo:hi], log_ratio_grads,
-                         _diag_prec_times_diffs(model, samples, lo, hi))
-            for lo, hi in diag_chunks(model.max_components, n, d)])
+        hess = reduce.data_sum(torch.cat([
+            torch.einsum("kn,nd,knd->kd", w[a:b], log_ratio_grads,
+                         _diag_prec_times_diffs(part, samples, a, b))
+            for a, b in diag_chunks(part.max_components, n, d)]))
         return NgEstimate(-hess, -grad)
-    lam = model.inv_chols.mT @ model.inv_chols                    # [K, D, D]
+    lam = part.inv_chols.mT @ part.inv_chols                      # [K, D, D]
+    # the centroid of every active mean, whichever slots are estimated
     active = model.mask
     shift = torch.where(active[:, None], model.means, 0.0).sum(0) \
         / torch.clamp(active.sum(), min=1)
-    lam_mu = torch.einsum("kde,ke->kd", lam, model.means - shift[None, :])
+    lam_mu = torch.einsum("kde,ke->kd", lam, part.means - shift[None, :])
     # s_mom[k] = sum_n w[k, n] g_n (x_n - c)^T: kernel B7 where the JAX
     # package streams it through its kernel, the plain product elsewhere
     smom = stein_ops.stein_smom_plain
     if stein_ops.supports(model.num_dimensions, samples.shape[0]):
         smom = stein_ops.stein_smom
-    s_mom = smom(w, log_ratio_grads, samples - shift[None, :])
+    s_mom = reduce.data_sum(smom(w, log_ratio_grads,
+                                 samples - shift[None, :]))
     hess = s_mom @ lam - grad[:, :, None] * lam_mu[:, None, :]
     hess = 0.5 * (hess + hess.mT)
     return NgEstimate(-hess, -grad)
@@ -227,12 +241,16 @@ def more_estimate(
     only_use_own_samples: bool = False,
     pack: Optional[DensityPack] = None,
     newest_mask: Optional[torch.Tensor] = None,
+    comp_slice: Optional[Tuple[int, int]] = None,
 ) -> NgEstimate:
     """Zero-order estimate through a quadratic surrogate of the log ratios
     ``log p(x) - log q(x)`` fitted per component: ``Hneg = quad``,
     ``gneg = quad mu - lin`` (diagonal model: ``Hneg = diag(quad)``,
     ``gneg = Hneg * mu - lin``).  Standard importance weights are the raw
-    ``exp(log_iw)``, as in the reference (it overflows past about 88)."""
+    ``exp(log_iw)``, as in the reference (it overflows past about 88).  On
+    a mesh the normal equations of this rank's rows are reduced over
+    ``data``; ``comp_slice`` ``(lo, hi)`` fits slots ``lo:hi`` only, whose
+    ``l2_regularizers`` are given."""
     if pack is None:
         model_densities, comp_log_densities = log_densities_also_individual(
             model, samples)
@@ -240,9 +258,12 @@ def more_estimate(
         model_densities = pack.model_log_densities
         comp_log_densities = pack.component_log_densities
     log_ratios = target_lnpdfs - model_densities
+    lo, hi = comp_slice or (0, model.max_components)
+    if comp_slice is not None:
+        model = slice_components(model, lo, hi)
     log_iw, mask = _per_component_log_iw(
-        model, comp_log_densities, background, sample_mask, mapping,
-        only_use_own_samples, newest_mask)
+        comp_log_densities[lo:hi], background, sample_mask, mapping,
+        only_use_own_samples, newest_mask, first=lo)
     if use_self_normalized_importance_weights:
         w = _self_normalized(log_iw, mask)
     else:
@@ -251,8 +272,8 @@ def more_estimate(
         gram, rhs = more_grams_plain(model.inv_chols, model.means, w,
                                      log_ratios, samples)
         quad, lin, _ = solve_quadratic_normal_eqs(
-            gram, rhs, l2_regularizers, model.means, model.inv_chols,
-            diagonal=True)
+            reduce.data_sum(gram), reduce.data_sum(rhs), l2_regularizers,
+            model.means, model.inv_chols, diagonal=True)
         hneg = torch.diagonal(quad, dim1=-2, dim2=-1)
         return NgEstimate(hneg, hneg * model.means - lin)
     # kernel B8 within its envelope (D <= 45); above it the plain version,
@@ -260,7 +281,8 @@ def more_estimate(
     grams = (more_grams if model.num_dimensions <= MORE_MAX_D
              else more_grams_plain)
     gram, rhs = grams(model.inv_chols, model.means, w, log_ratios, samples)
-    quad, lin, _ = solve_quadratic_normal_eqs(gram, rhs, l2_regularizers,
-                                              model.means, model.inv_chols)
+    quad, lin, _ = solve_quadratic_normal_eqs(
+        reduce.data_sum(gram), reduce.data_sum(rhs), l2_regularizers,
+        model.means, model.inv_chols)
     gneg = torch.einsum("kij,kj->ki", quad, model.means) - lin
     return NgEstimate(quad, gneg)

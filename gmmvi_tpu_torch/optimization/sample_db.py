@@ -25,12 +25,18 @@ diagonal model's ring holds ``[R, Kmax, D]`` square roots of the variances
 and their reciprocals.
 
 With ``tpu.db_eviction: decimate`` the database is a
-``sample_db_decimate.DecimatingDbState`` instead.  The optimizer calls
-either through the methods the two state classes share
-(``add_samples``, ``get_newest_samples``, ``get_newest_samples_fused``,
+``sample_db_decimate.DecimatingDbState`` instead, and with ``tpu.db_layout:
+sharded`` a ``sample_db_sharded.ShardedSampleDbState``.  The optimizer
+calls each through the methods the state classes share (``add_samples``,
+``get_newest_samples``, ``get_newest_samples_fused``,
 ``get_random_samples``, ``repad``, ``size_metrics``, ``has_reservoir``,
-``uses_reservoir``), so the kind chosen when it is built is never tested
-again.
+``uses_reservoir``, ``row_sharded``), so the kind chosen when it is built
+is never tested again.
+
+On a mesh this ring is replicated: every rank writes the whole batch (the
+optimizer all-gathers the target's outputs first), and the window's
+counts and selection cover all of it, while its densities and background
+are taken on the rank's block of rows (``parallel.reduce.rows``).
 """
 from __future__ import annotations
 
@@ -43,8 +49,9 @@ import torch
 from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.models.gmm import DensityPack, GmmState, density_pack
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
+from gmmvi_tpu_torch.parallel import reduce
 from gmmvi_tpu_torch.optimization.sample_window import (
-    SampleWindow, background, count_bins, select_dists)
+    SampleWindow, background, count_bins, rank_window, select_dists)
 
 
 @dataclass
@@ -90,6 +97,8 @@ class SampleDbState:
 
     # the interface the optimizer calls, shared with DecimatingDbState
     has_reservoir = True
+    # the optimizer hands it the whole batch (on a mesh, gathered)
+    row_sharded = False
 
     @property
     def uses_reservoir(self) -> bool:
@@ -164,36 +173,26 @@ def add_samples(db: SampleDbState, iteration: int, model: GmmState,
     of that circular range keep what they held.  ``rand_slots`` ``[B]``
     (uniform in ``[0, C)``) and ``accept_u`` ``[B]`` (uniform in
     ``[0, 1)``) drive the reservoir's random replacement."""
-    s, b = db.capacity, samples.shape[0]
-    if b > s:
-        raise ValueError(f"batch {b} > ring capacity {s}")
-    dev = samples.device
-    validf = valid.to(torch.int32)
-    n_valid = validf.sum(dtype=torch.int32)
-
-    order = torch.argsort(torch.logical_not(valid).to(torch.int8),
-                          stable=True)
-    j = torch.arange(b, device=dev)
-    idx = torch.remainder(db.write_pos.to(torch.int64) + j, s)
-    take = j < n_valid
-
-    def splice(ring, rows):
-        sel = take.reshape((b,) + (1,) * (ring.ndim - 1))
-        merged = torch.where(sel, rows[order].to(ring.dtype), ring[idx])
-        return ring.index_copy(0, idx, merged)
-
-    iters_b = torch.full((b,), iteration, dtype=torch.int32, device=dev)
+    if samples.shape[0] > db.capacity:
+        raise ValueError(f"batch {samples.shape[0]} > ring capacity "
+                         f"{db.capacity}")
+    ring, write_pos, res, n_valid = write_ring(
+        (db.samples, db.target_lnpdfs, db.target_grads, db.sample_iter,
+         db.sample_comp), db.write_pos,
+        (db.res_samples, db.res_lnpdfs, db.res_count), iteration,
+        (samples, target_lnpdfs, target_grads, mapping), valid, rand_slots,
+        accept_u)
     new_db = db.replace(
-        samples=splice(db.samples, samples),
-        target_lnpdfs=splice(db.target_lnpdfs, target_lnpdfs),
-        target_grads=splice(db.target_grads, target_grads),
-        sample_iter=splice(db.sample_iter, iters_b),
-        sample_comp=splice(db.sample_comp, mapping),
-        write_pos=db.write_pos + n_valid,
+        samples=ring[0], target_lnpdfs=ring[1], target_grads=ring[2],
+        sample_iter=ring[3], sample_comp=ring[4], write_pos=write_pos,
         num_samples_written=db.num_samples_written + n_valid,
-    )
+        res_samples=res[0], res_lnpdfs=res[1], res_count=res[2])
+    return snapshot_dists(new_db, iteration, model)
 
-    # distribution ring: snapshot the current components
+
+def snapshot_dists(db, iteration: int, model: GmmState):
+    """``db`` with the current components in the distribution ring's row
+    ``iteration % R``."""
     row = iteration % db.ring_iters
 
     def set_row(ring, value):
@@ -201,16 +200,45 @@ def add_samples(db: SampleDbState, iteration: int, model: GmmState,
         out[row] = value
         return out
 
-    new_db = new_db.replace(
+    return db.replace(
         dist_means=set_row(db.dist_means, model.means),
         dist_chols=set_row(db.dist_chols, model.chols),
         dist_inv_chols=set_row(db.dist_inv_chols, model.inv_chols),
-        dist_block_iter=set_row(db.dist_block_iter, iteration),
-    )
+        dist_block_iter=set_row(db.dist_block_iter, iteration))
+
+
+def write_ring(ring, write_pos, reservoir, iteration: int, rows, valid,
+               rand_slots, accept_u):
+    """One ring's write: ``ring`` (samples, lnpdfs, grads, iterations,
+    components) ``[S, ...]`` from ``write_pos`` on, and its reservoir
+    (samples ``[C, D]``, lnpdfs ``[C]``, count), from ``rows`` (samples,
+    lnpdfs, grads, components) ``[B, ...]`` of which ``valid`` are kept.
+    Returns (ring, write_pos, reservoir, n_valid)."""
+    samples, target_lnpdfs, target_grads, mapping = rows
+    s, b = ring[0].shape[0], samples.shape[0]
+    dev = samples.device
+    validf = valid.to(torch.int32)
+    n_valid = validf.sum(dtype=torch.int32)
+
+    order = torch.argsort(torch.logical_not(valid).to(torch.int8),
+                          stable=True)
+    j = torch.arange(b, device=dev)
+    idx = torch.remainder(write_pos.to(torch.int64) + j, s)
+    take = j < n_valid
+
+    def splice(arr, new_rows):
+        sel = take.reshape((b,) + (1,) * (arr.ndim - 1))
+        merged = torch.where(sel, new_rows[order].to(arr.dtype), arr[idx])
+        return arr.index_copy(0, idx, merged)
+
+    iters_b = torch.full((b,), iteration, dtype=torch.int32, device=dev)
+    ring = tuple(splice(arr, new) for arr, new in zip(
+        ring, (samples, target_lnpdfs, target_grads, iters_b, mapping)))
 
     # reservoir: uniform over history, batched random replacement
-    c = db.reservoir_capacity
-    item_no = db.res_count + torch.cumsum(validf, 0, dtype=torch.int32)
+    res_samples, res_lnpdfs, res_count = reservoir
+    c = res_samples.shape[0]
+    item_no = res_count + torch.cumsum(validf, 0, dtype=torch.int32)
     fill_slots = torch.clamp(item_no - 1, 0, c - 1)
     slots = torch.where(item_no <= c, fill_slots, rand_slots.to(torch.int32))
     accept_p = torch.clamp(
@@ -224,12 +252,10 @@ def add_samples(db: SampleDbState, iteration: int, model: GmmState,
     last = last.scatter_reduce(0, slot_of, j, reduce="amax")[:c]
     found = last >= 0
     src = torch.clamp(last, min=0)
-    return new_db.replace(
-        res_samples=torch.where(found[:, None], samples[src],
-                                db.res_samples),
-        res_lnpdfs=torch.where(found, target_lnpdfs[src], db.res_lnpdfs),
-        res_count=db.res_count + n_valid,
-    )
+    reservoir = (torch.where(found[:, None], samples[src], res_samples),
+                 torch.where(found, target_lnpdfs[src], res_lnpdfs),
+                 res_count + n_valid)
+    return ring, write_pos + n_valid, reservoir, n_valid
 
 
 def _gather_window(db: SampleDbState, window: int,
@@ -287,14 +313,8 @@ def get_newest_samples(db: SampleDbState, window: int,
                                                                 min=1.0)),
         NEG_INF)
     means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
-    # (the counts are float32, as in the JAX package; a float64 state
-    # takes their logarithms exactly)
-    bg = background(db.diagonal, means_u, inv_u,
-                    log_weights.to(means_u.dtype), log_dets_u, samples)
-    return SampleWindow(
-        samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
-        target_grads=grads, background_log_pdfs=bg, valid=valid,
-        num_valid=valid.sum(dtype=torch.int32), sample_iters=sample_iters)
+    return rank_window(db.diagonal, means_u, inv_u, log_weights, log_dets_u,
+                       samples, comp, lnpdfs, grads, valid, sample_iters)
 
 
 def get_newest_samples_fused(db: SampleDbState, window: int,
@@ -313,52 +333,70 @@ def get_newest_samples_fused(db: SampleDbState, window: int,
     kmax, r = db.max_components, db.ring_iters
     samples, lnpdfs, grads, comp, valid, dist_key, sample_iters = \
         _gather_window(db, window, n_requested)
-    pack = density_pack(model, samples)
-
     is_cur = torch.div(dist_key, kmax, rounding_mode="floor") \
         == iteration % r
     counts_cur = count_bins(torch.where(valid & is_cur, comp, kmax), kmax)
+    old = None
     if not any_old_dists:
+        valid = valid & is_cur
+    else:
+        nkeys = r * kmax
+        counts = count_bins(torch.where(valid & ~is_cur, dist_key, nkeys),
+                            nkeys)
+        old = select_dists(counts, min(max_background_dists, nkeys),
+                           dist_key)
+        valid = valid & (is_cur | old[3])
+    # the counts above cover the whole window; the densities cover this
+    # rank's block of it
+    num_valid = valid.sum(dtype=torch.int32)
+    samples, comp, lnpdfs, grads, valid, sample_iters = (
+        reduce.rows(x) for x in (samples, comp, lnpdfs, grads, valid,
+                                 sample_iters))
+    pack = density_pack(model, samples)
+    bg = mixed_background(db, pack, counts_cur, old, samples)
+    win = SampleWindow(
+        samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
+        target_grads=grads, background_log_pdfs=bg, valid=valid,
+        num_valid=num_valid, sample_iters=sample_iters)
+    return win, pack
+
+
+def mixed_background(db, pack: DensityPack, counts_cur: torch.Tensor, old,
+                     samples: torch.Tensor) -> torch.Tensor:
+    """The background log density at ``samples``: the current components
+    weighted by ``counts_cur`` ``[Kmax]`` (from the pack's component
+    densities) and, with sample reuse, the older distributions ``old``
+    (:func:`select_dists`' output over the ring's keys, evaluated by kernel
+    B4), combined with ``logaddexp``; without reuse (``old`` None) the
+    current part alone."""
+    if old is None:
         total = counts_cur.sum()
         log_w_cur = torch.where(
             counts_cur > 0,
             torch.log(torch.clamp(counts_cur, min=1.0))
             - torch.log(torch.clamp(total, min=1.0)),
             NEG_INF)
-        bg = masked_logsumexp(
+        return masked_logsumexp(
             pack.component_log_densities + log_w_cur[:, None],
             mask=(counts_cur > 0)[:, None], dim=0)
-        valid = valid & is_cur
-    else:
-        nkeys = r * kmax
-        counts = count_bins(torch.where(valid & ~is_cur, dist_key, nkeys),
-                            nkeys)
-        top_counts, top_keys, sel_mask, selected = select_dists(
-            counts, min(max_background_dists, nkeys), dist_key)
-        valid = valid & (is_cur | selected)
-        total = torch.sum(torch.where(sel_mask, top_counts, 0.0)) \
-            + counts_cur.sum()
-        log_total = torch.log(torch.clamp(total, min=1.0))
-        log_w_cur = torch.where(
-            counts_cur > 0,
-            torch.log(torch.clamp(counts_cur, min=1.0)) - log_total, NEG_INF)
-        log_w_old = torch.where(sel_mask, torch.log(top_counts) - log_total,
-                                NEG_INF)
-        means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
-        # all U rows: the kernel skips the unselected ones, so the JAX
-        # package's two-size ladder (a cond on the live count) is not needed
-        bg_old = background(db.diagonal, means_u, inv_u,
-                             log_w_old.to(means_u.dtype), log_dets_u,
-                             samples)
-        bg_cur = masked_logsumexp(
-            pack.component_log_densities + log_w_cur[:, None],
-            mask=(counts_cur > 0)[:, None], dim=0)
-        bg = torch.logaddexp(bg_cur, bg_old)
-    win = SampleWindow(
-        samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
-        target_grads=grads, background_log_pdfs=bg, valid=valid,
-        num_valid=valid.sum(dtype=torch.int32), sample_iters=sample_iters)
-    return win, pack
+    top_counts, top_keys, sel_mask, _ = old
+    total = torch.sum(torch.where(sel_mask, top_counts, 0.0)) \
+        + counts_cur.sum()
+    log_total = torch.log(torch.clamp(total, min=1.0))
+    log_w_cur = torch.where(
+        counts_cur > 0,
+        torch.log(torch.clamp(counts_cur, min=1.0)) - log_total, NEG_INF)
+    log_w_old = torch.where(sel_mask, torch.log(top_counts) - log_total,
+                            NEG_INF)
+    means_u, inv_u, log_dets_u = _gather_dists(db, top_keys)
+    # all U rows: the kernel skips the unselected ones, so the JAX
+    # package's two-size ladder (a cond on the live count) is not needed
+    bg_old = background(db.diagonal, means_u, inv_u,
+                        log_w_old.to(means_u.dtype), log_dets_u, samples)
+    bg_cur = masked_logsumexp(
+        pack.component_log_densities + log_w_cur[:, None],
+        mask=(counts_cur > 0)[:, None], dim=0)
+    return torch.logaddexp(bg_cur, bg_old)
 
 
 def get_random_samples(db: SampleDbState, draw: torch.Tensor,

@@ -33,7 +33,7 @@ from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.models.gmm import GmmState, density_pack
 from gmmvi_tpu_torch.ops.stable import NEG_INF
 from gmmvi_tpu_torch.optimization.sample_window import (
-    SampleWindow, background, count_bins, select_dists)
+    SampleWindow, count_bins, rank_window, select_dists)
 
 
 @dataclass
@@ -69,7 +69,7 @@ class DecimatingDbState:
     # the interface the optimizer calls, shared with SampleDbState: no
     # reservoir (the candidates are the stored samples), and shapes that
     # do not depend on the padding
-    has_reservoir = uses_reservoir = False
+    has_reservoir = uses_reservoir = row_sharded = False
 
     def add_samples(self, iteration, model, samples, valid, mapping,
                     target_lnpdfs, target_grads, rand_slots=None,
@@ -291,16 +291,11 @@ def get_newest_samples(db: DecimatingDbState, window: int,
     log_dets = torch.sum(torch.log(
         chols if db.diagonal else
         torch.abs(torch.diagonal(chols, dim1=-2, dim2=-1))), -1)
-    means = db.dist_means[top_keys]
-    samples = db.samples[idx]
-    bg = background(db.diagonal, means, db.dist_inv_chols[top_keys],
-                    log_w.to(means.dtype), log_dets, samples)
-    return SampleWindow(
-        samples=samples, mapping=db.sample_comp[idx],
-        target_lnpdfs=db.target_lnpdfs[idx],
-        target_grads=db.target_grads[idx], background_log_pdfs=bg,
-        valid=valid, num_valid=valid.sum(dtype=torch.int32),
-        sample_iters=db.sample_iter[idx])
+    return rank_window(db.diagonal, db.dist_means[top_keys],
+                       db.dist_inv_chols[top_keys], log_w, log_dets,
+                       db.samples[idx], db.sample_comp[idx],
+                       db.target_lnpdfs[idx], db.target_grads[idx], valid,
+                       db.sample_iter[idx])
 
 
 def get_random_samples(db: DecimatingDbState, uniform: torch.Tensor, n: int):

@@ -25,7 +25,7 @@ import torch
 from gmmvi_tpu_torch.models import gmm as gmm_ops
 from gmmvi_tpu_torch.models.gmm import GmmState
 from gmmvi_tpu_torch.optimization.sample_db import SampleDbState
-from gmmvi_tpu_torch.ops.stable import masked_logsumexp
+from gmmvi_tpu_torch.parallel import reduce
 
 
 class SelectorConfig(NamedTuple):
@@ -55,9 +55,10 @@ def effective_samples(log_densities: torch.Tensor, background: torch.Tensor,
     in the JAX package's order (masked logsumexp, exp, sum of squares)."""
     log_w = log_densities - background[None, :]
     mask = valid[None, :].expand(log_w.shape)
-    log_w = log_w - masked_logsumexp(log_w, mask=mask, dim=1, keepdim=True)
+    log_w = log_w - reduce.data_masked_logsumexp(log_w, mask=mask, dim=1,
+                                                 keepdim=True)
     w = torch.where(mask, torch.exp(log_w), 0.0)
-    denom = torch.sum(torch.square(w), dim=1)
+    denom = reduce.data_sum(torch.sum(torch.square(w), dim=1))
     n_eff = torch.where(denom > 0, 1.0 / torch.clamp(denom, min=1e-38), 0.0)
     return torch.floor(n_eff).to(torch.int32)
 
@@ -148,6 +149,8 @@ def finalize_fused(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
         iteration, model, proposal.samples, proposal.valid,
         proposal.mapping, target_lnpdfs, target_grads, rand_slots, accept_u)
     n_new = proposal.valid.sum(dtype=torch.int32)
+    if db.row_sharded:  # the proposal holds this rank's rows only
+        n_new = reduce.data_sum(n_new)
     win, pack = db.get_newest_samples_fused(
         total_window_size(cfg, model.max_components),
         proposal.num_reused + n_new, cfg.max_background_dists, model,

@@ -25,6 +25,7 @@ from gmmvi_tpu_torch.models.gmm import LOG_2PI, diag_half_maha, xla_densities
 from gmmvi_tpu_torch.ops.background import background_logpdf
 from gmmvi_tpu_torch.ops.density_large import MAX_D as KERNEL_MAX_D
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
+from gmmvi_tpu_torch.parallel import reduce
 
 
 @dataclass
@@ -44,7 +45,8 @@ class SampleWindow:
     @property
     def newest_mask(self) -> torch.Tensor:
         """True for the valid samples of the newest add batch."""
-        newest = torch.max(torch.where(self.valid, self.sample_iters, -1))
+        newest = reduce.data_max(torch.max(torch.where(
+            self.valid, self.sample_iters, -1)))
         return self.valid & (self.sample_iters == newest)
 
 
@@ -90,3 +92,27 @@ def select_dists(counts: torch.Tensor, u: int, dist_key: torch.Tensor):
     table[torch.where(sel_mask, top_keys, nkeys)] = True
     selected = table[torch.clamp(dist_key.long(), max=nkeys)]
     return top_counts, top_keys, sel_mask, selected
+
+
+
+
+
+def rank_window(diagonal: bool, means_u, inv_u, log_weights, log_dets_u,
+                samples, comp, lnpdfs, grads, valid, sample_iters
+                ) -> SampleWindow:
+    """The window of a replicated database as this rank holds it: its
+    block of rows (all of them unmeshed) with their background densities
+    over the selected distributions, and the count of valid samples over
+    the whole window."""
+    num_valid = valid.sum(dtype=torch.int32)
+    samples, comp, lnpdfs, grads, valid, sample_iters = (
+        reduce.rows(x) for x in (samples, comp, lnpdfs, grads, valid,
+                                 sample_iters))
+    # (the counts are float32, as in the JAX package; a float64 state
+    # takes their logarithms exactly)
+    bg = background(diagonal, means_u, inv_u,
+                    log_weights.to(means_u.dtype), log_dets_u, samples)
+    return SampleWindow(
+        samples=samples, mapping=comp, target_lnpdfs=lnpdfs,
+        target_grads=grads, background_log_pdfs=bg, valid=valid,
+        num_valid=num_valid, sample_iters=sample_iters)

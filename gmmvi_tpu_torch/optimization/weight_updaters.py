@@ -22,8 +22,8 @@ from gmmvi_tpu_torch.models.gmm import (GmmState,
                                         log_densities_also_individual,
                                         normalize_log_weights)
 from gmmvi_tpu_torch.models.meta import MetaState
-from gmmvi_tpu_torch.ops.stable import (NEG_INF, masked_logsumexp,
-                                        signed_weighted_logsumexp)
+from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
+from gmmvi_tpu_torch.parallel import reduce
 
 LOG_WEIGHT_FLOOR = -69.07  # weights floored at 1e-30
 MAX_TRIPS = 50
@@ -36,21 +36,25 @@ def expected_log_ratios(model: GmmState, meta: MetaState,
                         use_self_normalized_importance_weights: bool
                         ) -> Tuple[torch.Tensor, MetaState]:
     """Per-component estimate of E_{q(x|o)}[log p(x) - T log q(x)]; stores
-    the rewards T log w_o + E[log ratio] in the reward history."""
+    the rewards T log w_o + E[log ratio] in the reward history.  On a mesh
+    the samples are this rank's rows and the sums over them are reduced
+    over ``data``; the weight searches then run replicated."""
     model_densities, comp_log_densities = log_densities_also_individual(
         model, samples)
     log_ratios = target_lnpdfs - temperature * model_densities
     log_iw = comp_log_densities - background[None, :]
     mask = sample_mask[None, :].expand(log_iw.shape)
     if use_self_normalized_importance_weights:
-        log_w = log_iw - masked_logsumexp(log_iw, mask=mask, dim=1,
-                                          keepdim=True)
+        log_w = log_iw - reduce.data_masked_logsumexp(log_iw, mask=mask,
+                                                      dim=1, keepdim=True)
         w = torch.where(mask, torch.exp(log_w), 0.0)
-        w = w / torch.clamp(w.sum(dim=1, keepdim=True), min=1e-38)
-        elr = w @ log_ratios
+        w = w / torch.clamp(reduce.data_sum(w.sum(dim=1, keepdim=True)),
+                            min=1e-38)
+        elr = reduce.data_sum(w @ log_ratios)
     else:
-        n = torch.clamp(sample_mask.sum(dtype=log_ratios.dtype), min=1.0)
-        elr = (1.0 / n) * signed_weighted_logsumexp(
+        n = torch.clamp(reduce.data_sum(
+            sample_mask.sum(dtype=log_ratios.dtype)), min=1.0)
+        elr = (1.0 / n) * reduce.data_signed_weighted_logsumexp(
             log_iw, log_ratios[None, :], dim=1, mask=mask)
     rewards = temperature * model.log_weights + elr
     rewards = torch.where(model.mask, rewards, meta.reward_history[:, -1])

@@ -12,6 +12,10 @@ cumulative ``algo_time``), a console line, npz model dumps, and
 checkpoints that resume exactly (``utils/checkpoint.py``).  On the card the
 evaluation's two mixture log-densities (the model's, and a GMM target's)
 run through kernel B9.
+
+A meshed run (``tpu.data_shards`` / ``tpu.comp_shards``, or ``mesh=``)
+builds the runner in every rank; all ranks step, only rank 0 prints and
+writes dumps and checkpoints.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from gmmvi_tpu_torch.experiments.setup import init_experiment
 from gmmvi_tpu_torch.models import gmm as gmm_ops
 from gmmvi_tpu_torch.models.gmm import GmmState
 from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+from gmmvi_tpu_torch.parallel import reduce
 from gmmvi_tpu_torch.utils import checkpoint as ckpt
 
 NUM_EVAL_SAMPLES = 2000
@@ -66,7 +71,7 @@ class GmmviRunner:
     without one it raises unless given ``"cpu"``."""
 
     def __init__(self, config: dict, log_metrics_interval: int,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         from gmmvi_tpu_torch.configs import validate_config
 
         validate_config(config, require_target="target_fn" not in config)
@@ -83,7 +88,9 @@ class GmmviRunner:
 
         target, model, meta = init_experiment(config, device=self.device)
         self.gmmvi = GMMVI.build_from_config(config, target, model, meta,
-                                             device=self.device)
+                                             device=self.device, mesh=mesh)
+        self.is_writer = (self.gmmvi.mesh is None
+                          or torch.distributed.get_rank() == 0)
         self.target_distribution = target
         self.eval_generator = torch.Generator(device=self.device).manual_seed(
             int(config["seed"]) + 7777)
@@ -106,15 +113,25 @@ class GmmviRunner:
             self.dump_gmms = False
 
     @staticmethod
-    def build_from_config(config: dict, device="cuda") -> "GmmviRunner":
-        return GmmviRunner(config=config, device=device,
+    def build_from_config(config: dict, device="cuda", mesh=None
+                          ) -> "GmmviRunner":
+        """The runner of ``config``; ``mesh`` (a ``DeviceMesh``) by
+        default the one ``tpu.data_shards`` / ``tpu.comp_shards`` ask for
+        (``parallel.mesh.mesh_from_config``), or None."""
+        if mesh is None:
+            from gmmvi_tpu_torch.parallel.mesh import mesh_from_config
+
+            mesh = mesh_from_config(config.get("tpu", {}) or {},
+                                    device_type=resolve_device(device).type)
+        return GmmviRunner(config=config, device=device, mesh=mesh,
                            **config["gmmvi_runner_config"])
 
     # ------------------------------------------------------------------
     def get_cheap_metrics(self) -> dict:
         """One copy from the card of all cheap metrics."""
         st = self.gmmvi.state
-        db_size, num_dists = st.db.size_metrics()
+        with reduce.scope(self.gmmvi.mesh):
+            db_size, num_dists = st.db.size_metrics()
         vals = torch.stack([
             st.db.num_samples_written.double(), st.model.num_active.double(),
             torch.max(st.model.weights).double(), db_size, num_dists,
@@ -158,24 +175,26 @@ class GmmviRunner:
 
         if n % self.log_metrics_interval == 0:
             eval_dict = self.get_expensive_metrics()
+            output.update(eval_dict)
+            if not self.is_writer:
+                return output
             print("Checkpoint {:3d} | FEVALS: {:10d} | avg. sample logpdf: "
                   "{:05.05f} | ELBO: {:05.05f}".format(
                       n, output["num_samples"], eval_dict["target_density"],
                       -eval_dict["-elbo"]))
             print(f"{output['num_components']} components\n")
-            output.update(eval_dict)
         return output
 
     # ------------------------------------------------------------------
     def log_to_disk(self, n: int) -> None:
         """npz model dumps: every iteration below 100, then every 50th."""
-        if not self.dump_gmms:
+        if not (self.dump_gmms and self.is_writer):
             return
         if n < 100 or n % 50 == 0:
             self._dump(os.path.join(self.dump_gmm_path, f"gmm_dump_{n}.npz"))
 
     def finalize(self) -> None:
-        if self.dump_gmms:
+        if self.dump_gmms and self.is_writer:
             self._dump(os.path.join(self.dump_gmm_path, "final_gmm_dump.npz"))
 
     def _dump(self, path: str) -> None:
@@ -190,16 +209,19 @@ class GmmviRunner:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
         """The full training state and the generator's state: a run
-        resumed from it takes the steps an unbroken run takes."""
-        ckpt.save_state(path, self.gmmvi.state, self.gmmvi.generator)
+        resumed from it takes the steps an unbroken run takes.  On a mesh
+        every rank calls it and rank 0 writes."""
+        with reduce.scope(self.gmmvi.mesh):
+            ckpt.save_state(path, self.gmmvi.state, self.gmmvi.generator)
 
     def load_checkpoint(self, path: str) -> None:
         """Load a checkpoint of this config (the port's, or the JAX
         package's, whose random key is ignored), first growing the padded
         capacity to the file's where VIPS had grown it."""
         self.gmmvi.grow_capacity(ckpt.stored_max_components(path))
-        state, gen = ckpt.load_state(path, self.gmmvi.state,
-                                     device=self.device)
+        with reduce.scope(self.gmmvi.mesh):
+            state, gen = ckpt.load_state(path, self.gmmvi.state,
+                                         device=self.device)
         self.gmmvi.state = state
         if gen is not None:
             self.gmmvi.generator.set_state(gen)

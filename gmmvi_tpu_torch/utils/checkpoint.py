@@ -13,6 +13,11 @@ unbroken one would.
 A checkpoint of the JAX package loads too: its ``key`` leaf is ignored and
 the generator is left as it is.  Loading into a state whose paths or shapes
 differ raises, naming them; a dtype-only difference warns and converts.
+
+A meshed run saves one file in the JAX package's layout: every rank calls
+:func:`save_state` inside its ``parallel.reduce`` scope, a sharded
+database's ``[P, ...]`` leaves are gathered from the ranks, and only rank 0
+writes.  Every rank loads the file and keeps its own shard.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 FORMAT_VERSION = 2
 GENERATOR_LEAF = "generator"
@@ -54,9 +60,11 @@ def structure_hash(specs: Dict[str, Tuple[tuple, np.dtype]]) -> str:
 def save_state(path: str, state,
                generator: Optional[torch.Generator] = None) -> None:
     """Save ``state`` (and ``generator``'s state) to ``path`` (.npz)."""
-    from gmmvi_tpu_torch import state_to_numpy
+    from gmmvi_tpu_torch import gathered_state_to_numpy
 
-    named = state_to_numpy(state)
+    named = gathered_state_to_numpy(state)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     if generator is not None:
         named[GENERATOR_LEAF] = generator.get_state().numpy()
     specs = {k: (tuple(v.shape), v.dtype) for k, v in named.items()}
@@ -79,8 +87,12 @@ def load_state(path: str, like, device="cuda"):
     """``(state, generator_state)`` from ``path``: the state built with the
     structure of ``like`` (a freshly built state of the same config and
     capacity) on ``device``, and the saved generator state as a uint8
-    tensor (None for a file without one, such as the JAX package's)."""
+    tensor (None for a file without one, such as the JAX package's).  A
+    rank of a meshed run takes its own shards of a sharded database (from
+    ``like.db.first_shard`` on)."""
     from gmmvi_tpu_torch import state_from_numpy
+    from gmmvi_tpu_torch.optimization.sample_db_sharded import (
+        SHARDED_FIELDS, ShardedSampleDbState)
 
     with np.load(path, allow_pickle=False) as data:
         if "__format_version__" not in data:
@@ -93,6 +105,11 @@ def load_state(path: str, like, device="cuda"):
                              f"supported v{FORMAT_VERSION}")
         stored = {k[len("leaf::"):]: data[k] for k in data.files
                   if k.startswith("leaf::")}
+    if isinstance(like.db, ShardedSampleDbState):
+        n = like.db.n_local
+        lo = like.db.first_shard
+        stored.update({f"db.{k}": stored[f"db.{k}"][lo:lo + n]
+                       for k in SHARDED_FIELDS if f"db.{k}" in stored})
     expected = _leaf_specs(like)
     missing = sorted(set(expected) - set(stored))
     extra = sorted(set(stored) - set(expected) - {GENERATOR_LEAF,

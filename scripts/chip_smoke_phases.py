@@ -7,7 +7,9 @@ Phases (any of them, in this order; all when none is named):
 ``newton`` (stm300 with newton), ``search`` (the flagship with grid,
 bracket-eigen and newton), ``stm1024``, ``decimate`` (the flagship ZAMTRUX
 with the decimating database and its step-21 witness) and ``gmm20`` (the
-gmm20 runner with prior samples and without a database).  Each prints the
+gmm20 runner with prior samples and without a database) and ``mesh`` (the
+meshed paths M1-M7, ranks on the one card, then B1, B2 and B3's search
+at a rank's shapes).  Each prints the
 lines the full script prints; ``--rows`` then holds the kernels on these
 paths' last inputs against their plain versions.  ``--save-rebuild DIR``
 writes each watched path's worst rebuilt trust-region update
@@ -26,7 +28,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-PHASES = ("stm300", "newton", "search", "stm1024", "decimate", "gmm20")
+PHASES = ("stm300", "newton", "search", "stm1024", "decimate", "gmm20",
+          "mesh")
 
 
 def main() -> int:
@@ -61,7 +64,9 @@ def main() -> int:
             ("decimate", lambda: cs.zamtrux_decimate_phase(dev, dec,
                                                            densities)),
             *[("gmm20", lambda p=p, c=c: cs.gmm20_variant_phase(
-                dev, p, c, densities)) for p, c in gmm20.items()]]
+                dev, p, c, densities)) for p, c in gmm20.items()],
+            ("mesh", lambda: cs.mesh_phases(dev)),
+            ("mesh", lambda: cs.mesh_kernel_rows(dev))]
     failed = 0
     for name, run in runs:
         if name not in want:

@@ -1030,3 +1030,29 @@ def test_large_d_path_on_card_matches_cpu(dev):
     for name in ("model.means", "model.log_weights"):
         np.testing.assert_allclose(card[name], cpu[name], rtol=1e-3,
                                    atol=1e-3, err_msg=name)
+
+
+def test_meshed_first_step_on_card_matches_unmeshed(dev, tmp_path):
+    """``chip_smoke.py``'s mesh path M1 for one step: the flagship SAMTRON
+    (45 components in 48 slots, 200 samples each, D = 20, the global ring)
+    on a data mesh of two ranks that share cuda:0 over gloo, each rank's
+    kernels on its block of the rows, against the unmeshed step on the
+    card from the same state and draws: integer leaves (fevals included)
+    exactly, floats within rtol 1e-4 / atol 1e-5, the replicated state
+    equal on both ranks."""
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.parallel.mesh import spawn
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_mesh_worker import card_first_step
+
+    cs = _chip_smoke()
+    cuda.build_all()
+    want = cs.mesh_reference(dev, tmp_path)
+    spawn(card_first_step, 2, "gloo", args=(str(tmp_path),), timeout_s=300)
+    with np.load(tmp_path / "state1.npz") as z:
+        got = dict(z)
+    cmp_ = cs.compare_states(got, want, 1e-4, 1e-5)
+    assert not cmp_["missed"], cmp_["worst"]
+    assert int(got["db.num_samples_written"]) == int(
+        want["db.num_samples_written"]) > 0

@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -208,16 +209,41 @@ def test_settings_that_raised_build_and_step(override):
 
 
 def test_meshes_raise():
-    """Meshes (multi-device) are not ported: a data or component axis of
-    more than one device raises when the optimizer is built."""
+    """A data or component axis of more than one rank needs a process
+    group (one process per rank, ``parallel.mesh.initialize_distributed``):
+    without one, building the optimizer raises and names it.  Meshed runs
+    themselves are held in tests/test_torch_mesh.py."""
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     cfg, target, model, meta = _small_samtron()
     for key in ("data_shards", "comp_shards"):
-        with pytest.raises(NotImplementedError, match="meshes"):
+        with pytest.raises(RuntimeError, match="initialize_distributed"):
             GMMVI.build_from_config(
                 tcfg.update_config(cfg, {"tpu": {key: 2}}), target, model,
                 meta, device="cpu")
+
+
+@pytest.mark.parametrize("shards", [1, "all"])
+def test_one_rank_without_a_group_is_unmeshed(shards):
+    """``tpu.data_shards`` of one rank (1, or ``"all"`` of a world of one)
+    without a process group builds an unmeshed run on the global ring, as
+    the port did before it had meshes: two steps equal to the bit to the
+    run without the key."""
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    states = []
+    for over in ({}, {"tpu": {"data_shards": shards}}):
+        cfg, target, model, meta = _small_samtron()
+        g = GMMVI.build_from_config(tcfg.update_config(cfg, over), target,
+                                    model, meta, device="cpu")
+        assert g.mesh is None
+        assert type(g.state.db).__name__ == "SampleDbState"
+        g.train_iters(2)
+        states.append(gmmvi_tpu_torch.state_to_numpy(g.state))
+    assert set(states[0]) == set(states[1])
+    for k in states[0]:
+        np.testing.assert_array_equal(states[1][k], states[0][k], err_msg=k)
 
 
 @pytest.mark.parametrize("kernel", ["background", "more"])

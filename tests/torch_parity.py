@@ -126,7 +126,11 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     prior samples the key is split once more before the update phase's
     split (``_full_step``); a decimating database draws no reservoir slots,
     and its add candidates, like those of a ring without a database, come
-    from ``[S]`` uniforms (``db_u``) instead of a reservoir permutation."""
+    from ``[S]`` uniforms (``db_u``) instead of a reservoir permutation.  A
+    sharded database (``db_layout: sharded`` on a mesh, ``[P, ...]``
+    leaves) draws its reservoir slots and accept uniforms ``[P, B / P]``
+    and its candidates per shard: ``[P, ceil(n / P)]`` from a permutation
+    of each shard's slots, or ``[P, S]`` uniforms without a database."""
     from gmmvi_tpu.models import gmm as jgmm
     from gmmvi_tpu_torch import StepDraws
 
@@ -135,8 +139,10 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     kmax = st.model.max_components if kmax is None else kmax
     d = st.model.num_dimensions
     n_des = jax_gmmvi.selector_cfg.desired_samples_per_component
-    ring = hasattr(st.db, "reservoir_capacity")
-    c = st.db.reservoir_capacity if ring else 0
+    sharded = hasattr(st.db, "n_shards")
+    ring = sharded or hasattr(st.db, "reservoir_capacity")
+    c = (st.db.reservoir_capacity_local if sharded
+         else st.db.reservoir_capacity if ring else 0)
     key1, k_sel = jax.random.split(key)
     mapping = None
     if jax_gmmvi.selector_cfg.is_vips:
@@ -162,16 +168,25 @@ def jax_step_draws(jax_gmmvi, key=None, kmax=None, dtype=jnp.float32):
     draws = StepDraws(eps=t(eps), rand_slots=None, accept_u=None)
     if ring:
         slot_key, acc_key = jax.random.split(k_db)
-        draws.rand_slots = t(jax.random.randint(slot_key, (b,), 0, c),
+        shape = (st.db.n_shards, b // st.db.n_shards) if sharded else (b,)
+        draws.rand_slots = t(jax.random.randint(slot_key, shape, 0, c),
                              torch.int32)
-        draws.accept_u = t(jax.random.uniform(acc_key, (b,)))
+        draws.accept_u = t(jax.random.uniform(acc_key, shape))
     if mapping is not None:
         draws.mapping = t(mapping, torch.int64)
     if prior_eps is not None:
         draws.prior_eps = t(prior_eps)
     if vips is not None:
         db_key, a_key = jax.random.split(k_adapt)
-        if ring and st.db.keep_samples:
+        if sharded and st.db.keep_samples:
+            n_l = -(-vips.num_database_samples // st.db.n_shards)
+            draws.db_perm = t(jax.vmap(lambda k: jax.random.permutation(
+                k, c))(jax.random.split(db_key, st.db.n_shards))[:, :n_l],
+                torch.int64)
+        elif sharded:
+            draws.db_u = t(jax.random.uniform(
+                db_key, (st.db.n_shards, st.db.capacity_local)))
+        elif ring and st.db.keep_samples:
             draws.db_perm = t(jax.random.permutation(db_key, c)[
                 :vips.num_database_samples], torch.int64)
         else:
