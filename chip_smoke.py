@@ -135,7 +135,25 @@ printing one JSON line:
    130 iterations; held to no kernel launch (a diagonal model is plain
    torch, as in the JAX package), a finite state, a rising ELBO and step
    21 on the card equal to the same step on the CPU, leaf by leaf at the
-   one-step bar (rtol 1e-4 / atol 1e-5);
+   one-step bar (rtol 1e-4 / atol 1e-5); then the MNIST BNN (D = 101,770,
+   diagonal SEMTRON built by the registry's ``MNIST``, on
+   ``mnist.npz`` where one is found, else on the JAX package's synthetic
+   stand-in, ``GMMVI_ALLOW_SYNTHETIC=1`` for this phase's loads; its
+   ``mnist_data`` line says which): ``mnist_jax_test``, the JAX
+   package's own MNIST test configuration (1 component, 4 samples, batch
+   32) for 30 steps, held to no launch, a finite state, means that moved,
+   step 21 against the CPU (leaf by leaf at the one-step bar; a leaf that
+   misses it passes only where the card meets the bar against the float64
+   step or float32 on the CPU misses it too) and the target's rows of that
+   step against the CPU's float32 evaluation of the same rows and against
+   float64 within their first-order float32 bound; ``mnist_wide``, the
+   port's load configuration (8 components of 128 samples, as many
+   reused, batch 128) for 30 steps, held to no launch, a finite state and
+   means that moved; each prints its median step, the target's share,
+   copies per step, the peak memory, the ELBO and the target's metrics;
+   then every ``examples_torch/`` script as a user runs it, for 20
+   iterations (the meshed one with two ranks over gloo), each held to exit
+   0 and a finite last ELBO, with its seconds and kernel launches;
 7. meshes (``mesh_phases``): seven runs of ranks in fresh processes
    (``parallel.mesh.spawn``), every rank on cuda:0, through
    ``GMMVI.build_from_config`` / ``GmmviRunner.build_from_config`` with
@@ -3061,6 +3079,459 @@ def diagonal_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The MNIST BNN on diagonal covariances, and the examples
+# ---------------------------------------------------------------------------
+
+# the 784-128-10 classifier's weights: D = 101,770
+MNIST_D = 784 * 128 + 128 + 128 * 10 + 10
+# the JAX package's own MNIST test (tests/test_bnn_e2e.py): 1 component, 4
+# samples, batch 32; the port's load configuration: 8 components of 128
+# samples with as many reused (a 2,048-row window), batch 128
+MNIST_RUNS = {"mnist_jax_test": {"components": 1, "samples": 4,
+                                 "ratio": 0.0, "batch": 32},
+              "mnist_wide": {"components": 8, "samples": 128,
+                             "ratio": 1.0, "batch": 128}}
+MNIST_ITERS, MNIST_COMPARED_STEP = 30, 20
+# the compared step's target rows, card against the CPU's float32
+# evaluation of the same rows and batches: log densities within atol +
+# rtol |ld|, gradients within a fraction of their largest entry (the bars
+# of the CPU test against the JAX package)
+MNIST_LD_RTOL, MNIST_LD_ATOL, MNIST_GRAD_FRAC = 1e-5, 1e-2, 1e-4
+# the stand-in's shapes (train, test, vali rows; pixels; labels)
+MNIST_STAND_IN = (6000, 500, 500, 784, 10)
+# every example for this many iterations on the card
+EXAMPLE_ITERS = 20
+EXAMPLE_TIMEOUT_S = 300
+_EXAMPLE_WRAPPER = (
+    "import atexit, json, runpy, sys\n"
+    "from gmmvi_tpu_torch.ops import cuda\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps(cuda.LAUNCHES),"
+    " file=sys.stderr, flush=True))\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n")
+
+
+def mnist_config(run: str) -> dict:
+    """SEMTRON on the MNIST BNN with diagonal covariances, built by the
+    registry (``environment_name: MNIST``): ``MNIST_RUNS[run]``'s
+    components (kept by the E letter, in as many slots), samples per
+    component, sample reuse and batch size; the rest as the JAX package's
+    MNIST test sets it (prior N(0, 1), stepsize 0.01 in [0.001, 0.1],
+    database 1,000)."""
+    from gmmvi_tpu_torch.configs import get_default_algorithm_config, \
+        update_config
+
+    r = MNIST_RUNS[run]
+    return update_config(get_default_algorithm_config("SEMTRON"), {
+        "start_seed": 0, "environment_name": "MNIST",
+        "environment_config": {"likelihood_scaling": 1.0, "prior_std": 1.0,
+                               "batch_size": r["batch"]},
+        "model_initialization": {
+            "use_diagonal_covs": True,
+            "num_initial_components": r["components"], "prior_mean": 0.0,
+            "prior_scale": 1.0, "initial_cov": 1.0},
+        "use_sample_database": True, "max_database_size": 1000,
+        "temperature": 1.0,
+        "sample_selector_config": {
+            "desired_samples_per_component": r["samples"],
+            "ratio_reused_samples_to_desired": r["ratio"]},
+        "component_stepsize_adapter_config": {
+            "initial_stepsize": 0.01, "min_stepsize": 0.001,
+            "max_stepsize": 0.1},
+        "gmmvi_runner_config": {"log_metrics_interval": 100},
+        "tpu": {"max_components": r["components"]}})
+
+
+def target_cursor(target) -> tuple:
+    """A BNN target's batch order, cursor and generator state."""
+    return target._order.copy(), target._cursor, target._rng.get_state()
+
+
+def set_target_cursor(target, cursor: tuple) -> None:
+    order, pos, rng = cursor
+    target._order, target._cursor = order.copy(), pos
+    target._rng.set_state(rng)
+
+
+def bnn_ce_float64(target, x, rows):
+    """The cross-entropy BNN's log densities and gradients of samples ``x``
+    ``[N, D]`` on batches ``rows`` ``[N, B]`` of ``target``'s training
+    data, in float64 on the CPU, with each entry's first-order bound on
+    the error of a float32 evaluation (Higham's gamma_n of the sums):
+    ``(ld, grads, ld_bound, grads_bound)``.
+
+    The hidden pre-activations are 785-term sums, the logits 129-term
+    sums of the activations (their error carried through ``|W2|``), the
+    log-softmax adds the largest logit error and ~12 roundings, the loss
+    a B-term mean, the prior a D-term sum.  The gradient is backpropagated
+    the same way in absolute values: the softmax's relative error from the
+    log-softmax's, the 10-term product with ``W2``, and where a hidden
+    unit's pre-activation lies within its bound of 0 (its ReLU may flip)
+    the whole of that unit's term; each weight gradient a B-term sum."""
+    import torch
+
+    g = gamma
+    x = x.detach().cpu().double()
+    rows = rows.cpu()
+    feats = target._x_tr.cpu().double()[rows]                 # [N, B, 784]
+    labels = target._y_tr.cpu()[rows]                         # [N, B]
+    n, b = rows.shape
+    (f, h), _, (_, o), _ = target.shapes
+    w1 = x[:, :f * h].reshape(n, f, h)
+    b1 = x[:, f * h:f * h + h]
+    w2 = x[:, f * h + h:f * h + h + h * o].reshape(n, h, o)
+    b2 = x[:, f * h + h + h * o:]
+    pre = feats @ w1 + b1[:, None]
+    e_pre = g(f + 1) * (feats.abs() @ w1.abs() + b1.abs()[:, None])
+    act = torch.relu(pre)
+    logits = act @ w2 + b2[:, None]
+    e_logits = g(h + 1) * (act @ w2.abs() + b2.abs()[:, None]) \
+        + e_pre @ w2.abs()
+    lse = torch.logsumexp(logits, -1, keepdim=True)
+    lsm = logits - lse
+    e_lsm = e_logits + e_logits.amax(-1, keepdim=True) \
+        + g(12) * (logits.abs() + lse.abs())
+    onehot = torch.nn.functional.one_hot(labels, o).double()
+    ce = -(lsm * onehot).sum(-1)
+    loss = ce.mean(-1)
+    e_loss = (e_lsm * onehot).sum(-1).mean(-1) + g(b + 2) * ce.abs().mean(-1)
+    t, ls = float(target.train_size), target.likelihood_scaling
+    var = target.prior_std ** 2
+    sq = (x * x).sum(-1) / var
+    ld = ls * (-t * loss - 0.5 * sq)
+    ld_bound = ls * (t * e_loss + g(x.shape[1] + 2) * 0.5 * sq) \
+        + g(4) * ls * (t * loss.abs() + 0.5 * sq)
+    # d loss / d logits = (softmax - onehot) / B
+    p = torch.exp(lsm)
+    delta = p - onehot
+    e_delta = p * (e_lsm + g(3)) + g(1) * delta.abs()
+    z = delta @ w2.transpose(1, 2)
+    e_z = e_delta @ w2.abs().transpose(1, 2) \
+        + g(o + 1) * delta.abs() @ w2.abs().transpose(1, 2)
+    on = (pre > 0).double()
+    flip = pre.abs() <= e_pre
+    dh = z * on
+    e_dh = torch.where(flip, z.abs() + e_z, e_z * on)
+
+    def flat(*parts):
+        return torch.cat([q.reshape(n, -1) for q in parts], 1)
+
+    tb = lambda m: m.transpose(1, 2)                          # noqa: E731
+    grad_loss = flat(tb(feats) @ dh, dh.sum(1), tb(act) @ delta,
+                     delta.sum(1)) / b
+    e_grad_loss = flat(
+        tb(feats.abs()) @ e_dh + g(b + 2) * tb(feats.abs()) @ dh.abs(),
+        e_dh.sum(1) + g(b + 2) * dh.abs().sum(1),
+        tb(e_pre) @ delta.abs() + tb(act) @ e_delta
+        + g(b + 2) * tb(act) @ delta.abs(),
+        e_delta.sum(1) + g(b + 2) * delta.abs().sum(1)) / b
+    grads = ls * (-t * grad_loss - x / var)
+    grads_bound = ls * (t * e_grad_loss
+                        + g(4) * (t * grad_loss.abs() + x.abs() / var))
+    return ld, grads, ld_bound, grads_bound
+
+
+def bound_ratio(got, want, bound) -> float:
+    """The largest ``|got - want| / bound`` over the entries."""
+    import torch
+
+    err = (got.detach().cpu().double() - want).abs()
+    return float((err / torch.clamp(bound, min=1e-300)).max())
+
+
+def mnist_step_on_cpu(cfg, compared: dict, float64: bool) -> dict:
+    """The compared step again on the CPU from the card's state before it,
+    its draws and its target's cursor (in float64 from the float32 values
+    cast exactly where ``float64``): the state's leaves after it."""
+    import numpy as np
+    import torch
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch import StepDraws
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    target, model, meta = init_experiment(cfg, device="cpu")
+    cpu = GMMVI.build_from_config(cfg, target, model, meta, device="cpu")
+    set_target_cursor(target, compared["cursor"])
+    state = compared["before"]
+    if float64:
+        state = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+                 for k, v in state.items()}
+    cpu.state = gmmvi_tpu_torch.state_from_numpy(state, device="cpu",
+                                                 like=cpu.state)
+    cpu.train_iter(StepDraws(**{
+        f: None if v is None else v.to(
+            "cpu", torch.float64 if float64 and v.is_floating_point()
+            else v.dtype)
+        for f, v in vars(compared["draws"]).items()}))
+    return gmmvi_tpu_torch.state_to_numpy(cpu.state)
+
+
+def mnist_run(dev, run: str) -> dict:
+    """One MNIST run (``mnist_config(run)``) through
+    ``init_experiment``, ``GMMVI.build_from_config`` and ``train_iter``
+    for ``MNIST_ITERS`` steps, the launch counters set to 0 just before and
+    read just after, each target call timed between synchronizes.  Holds
+    no kernel launched, a finite state and means that moved; on
+    ``mnist_jax_test`` also the compared step on the card against the CPU
+    (leaf by leaf at the one-step bar; a leaf that misses it is held
+    against the float64 step and passes only where the card meets the bar
+    there or float32 on the CPU misses it too) and the target's rows of
+    that step against the CPU's float32 evaluation of the same rows (log
+    densities within ``MNIST_LD_ATOL`` + ``MNIST_LD_RTOL`` |ld|, gradients
+    within ``MNIST_GRAD_FRAC`` of their largest entry) and against float64
+    within their first-order float32 bounds (:func:`bnn_ce_float64`)."""
+    import torch
+
+    import gmmvi_tpu_torch
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.models import gmm as gmm_ops
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    cfg = mnist_config(run)
+    r = MNIST_RUNS[run]
+    target, model, meta = init_experiment(cfg, device=dev)
+    gmmvi = GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+    sel = gmmvi.selector_cfg
+    k = r["components"]
+    shape = (model.num_dimensions, model.diagonal, tuple(model.chols.shape),
+             int(model.num_active), sel.desired_samples_per_component,
+             sel.reused_samples_per_component, target.batch_size)
+    want = (MNIST_D, True, (k, MNIST_D), k, r["samples"],
+            int(r["ratio"] * r["samples"]), r["batch"])
+    if shape != want:
+        raise AssertionError(f"{run} built as {shape}, not {want}")
+    means0 = model.means.clone()
+    elbo_start, _ = elbo(model, target)
+
+    target_s, bucket_rows = [], []
+    record: dict = {"on": False}
+    call, next_rows = target.log_density_and_grad, target._next_rows
+
+    def rows_of_call(n):
+        rows = next_rows(n)
+        if record["on"]:
+            record["rows"] = rows
+        return rows
+
+    def timed(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(x)
+        torch.cuda.synchronize()
+        target_s.append(time.perf_counter() - t0)
+        bucket_rows.append(int(x.shape[0]))
+        if record["on"]:
+            record["x"], record["out"] = x.clone(), out
+        return out
+
+    target.log_density_and_grad, target._next_rows = timed, rows_of_call
+    compared: dict = {}
+
+    def step(i):
+        if run == "mnist_jax_test" and i == MNIST_COMPARED_STEP:
+            compared["before"] = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+            compared["cursor"] = target_cursor(target)
+            compared["draws"] = gmmvi.draw(gmmvi.num_updates)
+            record["on"] = True
+            gmmvi.train_iter(compared["draws"])
+            record["on"] = False
+            compared["after"] = gmmvi_tpu_torch.state_to_numpy(gmmvi.state)
+        else:
+            gmmvi.train_iter()
+
+    try:
+        step_s, launches = run_path(dev, gmmvi, MNIST_ITERS, step=step)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        st = gmmvi.state
+        state_finite = model_finite(st)
+        moved = float(torch.linalg.norm(st.model.means - means0))
+        norm = float(torch.linalg.norm(st.model.means))
+        elbo_end, _ = elbo(st.model, target)
+        g = torch.Generator(device=dev).manual_seed(1)
+        samples, _ = gmm_ops.sample(st.model, 64, g)
+        metrics = target.expensive_metrics(st.model, samples)
+        copies = copies_per_step(gmmvi.train_iter)
+    finally:
+        del target.log_density_and_grad, target._next_rows
+    median = statistics.median(step_s[1:]) * 1e3
+    target_ms = statistics.median(target_s[1:MNIST_ITERS]) * 1e3
+    out = dict(
+        phase="main_path", path=run, codename="SEMTRON",
+        experiment=f"MNIST BNN D={MNIST_D}, diagonal, {k} components x "
+                   f"{r['samples']} samples, reuse {r['ratio']}, batch "
+                   f"{r['batch']}",
+        iterations=len(step_s), first_step_s=step_s[0],
+        median_step_ms=median, median_target_ms=target_ms,
+        target_share=target_ms / median,
+        target_rows_per_call=sorted(set(bucket_rows)),
+        fevals=int(st.db.num_samples_written), launches=launches,
+        device_to_host_copies_per_step=copies, peak_mem_mb=peak,
+        elbo_start=elbo_start, elbo_end=elbo_end, state_finite=state_finite,
+        means_moved=moved, means_norm=norm, **metrics)
+    if run == "mnist_jax_test":
+        out.update(mnist_compared_step(cfg, target, compared, record))
+    emit(out)
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on {run}: {launches}")
+    if not state_finite:
+        raise AssertionError(f"a non-finite state after {run}")
+    if not (moved > 0 and norm > 0):
+        raise AssertionError(f"the means did not move on {run}")
+    if run == "mnist_jax_test":
+        if out["card_vs_cpu_unexplained"]:
+            raise AssertionError(
+                f"{run}: step {MNIST_COMPARED_STEP + 1} on the card differs "
+                f"from the CPU's in {out['card_vs_cpu_unexplained']}")
+        if max(out["target_vs_cpu_float32"].values()) > 1.0:
+            raise AssertionError(
+                f"{run}: the target's rows on the card differ from the "
+                f"CPU's: {out['target_vs_cpu_float32']}")
+        if max(out["target_vs_float64_bound_ratio"].values()) > 1.0:
+            raise AssertionError(
+                f"{run}: the target's rows miss their float32 bound against "
+                f"float64: {out['target_vs_float64_bound_ratio']}")
+    return launches
+
+
+def mnist_compared_step(cfg, target, compared: dict, record: dict) -> dict:
+    """The checks of ``mnist_jax_test``'s compared step (see
+    :func:`mnist_run`), as fields of its line."""
+    import torch
+
+    from gmmvi_tpu_torch.experiments.setup import get_target_lnpdf
+
+    cpu32 = mnist_step_on_cpu(cfg, compared, float64=False)
+    cmp = compare_states(compared["after"], cpu32, DIAG_RTOL, DIAG_ATOL)
+    out = {"card_vs_cpu_step": MNIST_COMPARED_STEP + 1,
+           "card_vs_cpu_bar": f"rtol {DIAG_RTOL} / atol {DIAG_ATOL}",
+           "card_vs_cpu_worst": cmp["worst"],
+           "card_vs_cpu_missed": cmp["missed"],
+           "card_vs_cpu_unexplained": []}
+    if cmp["missed"]:
+        cpu64 = mnist_step_on_cpu(cfg, compared, float64=True)
+        card64 = compare_states(compared["after"], cpu64, DIAG_RTOL,
+                                DIAG_ATOL)["ratios"]
+        cpu32_64 = compare_states(cpu32, cpu64, DIAG_RTOL,
+                                  DIAG_ATOL)["ratios"]
+        out["missed_vs_float64"] = {
+            k: {"card": card64[k], "cpu_float32": cpu32_64[k]}
+            for k in cmp["missed"]}
+        out["card_vs_cpu_unexplained"] = [
+            k for k in cmp["missed"] if card64[k] > 1.0
+            and cpu32_64[k] <= 1.0]
+    # the target's rows of the compared step against float64
+    x, rows = record["x"], record["rows"]
+    ld, grads = record["out"]
+    ld64, g64, ld_b, g_b = bnn_ce_float64(target, x, rows)
+    cpu_t = get_target_lnpdf(cfg["environment_name"],
+                             cfg["environment_config"], 0, device="cpu")
+    with torch.enable_grad():
+        xc = x.detach().cpu().requires_grad_(True)
+        ld32 = cpu_t._posterior(xc, rows.cpu())
+        (g32,) = torch.autograd.grad(ld32.sum(), xc)
+    out["target_rows"] = list(rows.shape)
+    out["target_vs_cpu_float32"] = {
+        "log_density": float(((ld.cpu() - ld32.detach()).abs()
+                              / (MNIST_LD_ATOL + MNIST_LD_RTOL
+                                 * ld32.detach().abs())).max()),
+        "grads": float((grads.cpu() - g32).abs().max() / g32.abs().max()
+                       / MNIST_GRAD_FRAC)}
+    out["target_vs_float64_bound_ratio"] = {
+        "log_density": bound_ratio(ld, ld64, ld_b),
+        "grads": bound_ratio(grads, g64, g_b)}
+    out["target_cpu_float32_vs_float64_bound_ratio"] = {
+        "log_density": bound_ratio(ld32, ld64, ld_b),
+        "grads": bound_ratio(g32, g64, g_b)}
+    out["target_bound_rel"] = {
+        "log_density": float((ld_b / ld64.abs()).max()),
+        "grads": float((g_b.max() / g64.abs().max()))}
+    return out
+
+
+def mnist_phase(dev) -> dict:
+    """The MNIST BNN: its data (``mnist.npz`` where one is found, else the
+    JAX package's stand-in, ``GMMVI_ALLOW_SYNTHETIC=1`` set for this
+    phase's loads), then ``mnist_jax_test`` and ``mnist_wide``
+    (:func:`mnist_run`).  Returns each run's launches."""
+    import torch
+
+    from gmmvi_tpu_torch.experiments.targets import bnn
+    from gmmvi_tpu_torch.experiments.targets import datasets as data_lib
+
+    before = os.environ.get(data_lib.SYNTHETIC_ENV)
+    os.environ[data_lib.SYNTHETIC_ENV] = "1"
+    try:
+        found = next((p for p in data_lib.mnist_paths() if p.exists()), None)
+        t = bnn.make_MNIST_target(1.0, 1.0, 32, device=dev)
+        shapes = (t._x_tr.shape[0], t._x_te.shape[0], t._x_va.shape[0],
+                  t._x_tr.shape[1], int(t._y_tr.max()) + 1)
+        emit({"phase": "mnist_data", "file": str(found) if found else None,
+              "stand_in": found is None, "train_test_vali_pixels_labels":
+                  list(shapes), "dims": t.get_num_dimensions()})
+        if found is None and shapes != MNIST_STAND_IN:
+            raise AssertionError(f"the MNIST stand-in has shapes {shapes}")
+        del t
+        out = {}
+        for run in MNIST_RUNS:
+            out[run] = mnist_run(dev, run)
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        if before is None:
+            os.environ.pop(data_lib.SYNTHETIC_ENV, None)
+        else:
+            os.environ[data_lib.SYNTHETIC_ENV] = before
+
+
+def examples_phase(dev) -> dict:
+    """Every ``examples_torch/*.py`` as a user runs it (its own process,
+    ``PYTHONPATH`` the checkout) on the card with ``--iterations
+    EXAMPLE_ITERS`` (the meshed example with two ranks over gloo, sharing
+    the card), each in a wrapper that prints its kernel launches at exit
+    (the meshed example's ranks are other processes: its own count is 0).
+    Holds exit 0 and a finite last ELBO line; prints each one's seconds."""
+    import re
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    elbo_line = re.compile(r"ELBO(?: after \d+ iterations)?: (\S+)")
+    out = {}
+    for script in sorted((root / "examples_torch").glob("*.py")):
+        args = ["--iterations", str(EXAMPLE_ITERS)]
+        if script.name.startswith("7_"):
+            args += ["--ranks", "2", "--backend", "gloo"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _EXAMPLE_WRAPPER, str(script), *args],
+            cwd=str(root), env=env, capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        elbos = elbo_line.findall(proc.stdout)
+        launches = [json.loads(line[len("LAUNCHES "):])
+                    for line in proc.stderr.splitlines()
+                    if line.startswith("LAUNCHES ")]
+        line = {"phase": "example", "script": script.name, "args": args,
+                "exit": proc.returncode, "seconds": seconds,
+                "last_elbo": float(elbos[-1]) if elbos else None,
+                "launches": {k: v for k, v in (launches or [{}])[-1].items()
+                             if v}}
+        emit(line)
+        if proc.returncode != 0:
+            raise AssertionError(f"{script.name} exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        if line["last_elbo"] is None or not math.isfinite(line["last_elbo"]):
+            raise AssertionError(f"{script.name}: no finite ELBO line")
+        out[script.name] = line
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The trust-region searches, D > 512, the decimating database, prior
 # samples and candidates without a database
 # ---------------------------------------------------------------------------
@@ -4575,6 +5046,8 @@ def main() -> int:
             on_paths.setdefault(name, {}).update(labels)
     runner_input_rows(captured_runner)
     by_path["SAMTRON-diagonal"] = diagonal_phase(dev)
+    by_path.update(mnist_phase(dev))
+    examples_phase(dev)
     mesh_lines = mesh_phases(dev)
     rank_rows = mesh_kernel_rows(dev)
     for line in mesh_lines.values():

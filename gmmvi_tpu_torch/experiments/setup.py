@@ -23,10 +23,11 @@ def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
     """Environment-name registry: the Student-T mixture ("STM"), the GMM
     targets ("GMM*", "DIAGGMM*"), the logistic-regression posteriors
     ("breastCancer", "GermanCredit" and their "_mb" minibatch variants),
-    the planar robots ("PlanarRobot1", "PlanarRobot4"), the wine BNN
-    ("WINE*", its data split and batch order from the run seed) and the
-    Talos IK posterior ("Talos*").  Random targets are seeded with the run
-    seed unless ``environment_config`` names its own."""
+    the planar robots ("PlanarRobot1", "PlanarRobot4"), the MNIST BNN
+    ("MNIST*"), the wine BNN ("WINE*", its data split and batch order from
+    the run seed) and the Talos IK posterior ("Talos*").  Random targets
+    are seeded with the run seed unless ``environment_config`` names its
+    own.  An unknown name raises ValueError."""
     environment_config = dict(environment_config or {})
     target_seed = environment_config.pop("seed", seed)
     if experiment in ("breastCancer", "GermanCredit", "breastCancer_mb",
@@ -56,6 +57,9 @@ def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
         from gmmvi_tpu_torch.experiments.targets.gmm import make_target
         return make_target(seed=target_seed, device=device,
                            **environment_config)
+    if experiment.startswith("MNIST"):
+        from gmmvi_tpu_torch.experiments.targets.bnn import make_MNIST_target
+        return make_MNIST_target(device=device, **environment_config)
     if experiment.startswith("WINE"):
         from gmmvi_tpu_torch.experiments.targets.bnn import make_WINE_target
         return make_WINE_target(dataset_seed=seed, device=device,
@@ -64,10 +68,7 @@ def get_target_lnpdf(experiment: str, environment_config: dict, seed: int,
         from gmmvi_tpu_torch.experiments.targets.talos_ik import \
             make_talos_target
         return make_talos_target(device=device, **environment_config)
-    raise NotImplementedError(
-        f"target '{experiment}' is not ported yet (the port has STM, GMM, "
-        "DIAGGMM, breastCancer, GermanCredit, their _mb variants, "
-        "PlanarRobot1/4, WINE and Talos; MNIST waits for its data)")
+    raise ValueError(f"unknown experiment name: {experiment}")
 
 
 def construct_initial_mixture(

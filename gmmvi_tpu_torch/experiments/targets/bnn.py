@@ -1,4 +1,5 @@
-"""Bayesian neural-network posterior targets (the wine regressor).
+"""Bayesian neural-network posterior targets (the MNIST classifier and the
+wine regressor).
 
 (JAX counterpart: gmmvi_tpu/experiments/targets/bnn.py)
 
@@ -13,14 +14,16 @@ the end of the data).  That cursor is host state, so the target is not
 power-of-two bucket, as the JAX package does, and both packages see the
 same batches call for call within one process.
 
-The forward pass runs batched over samples, ``[N, B, 11]`` inputs against
-``[N, 11, 8]`` weights, in plain torch products (the JAX package computes
-it outside any kernel too); gradients are autograd of the summed per-sample
-posteriors.  The data and each call's batch indices live on the target's
-device; only the shuffled order is made on the host.
-
-The MNIST classifier (``BNN_MNIST``) is not ported: its data are not in the
-repository.
+The forward pass runs batched over samples, ``[N, B, F]`` inputs against
+``[N, F, H]`` weights sliced out of the ``[N, D]`` sample rows, in plain
+torch products (the JAX package computes it outside any kernel too);
+gradients are autograd of the summed per-sample posteriors.  The data and
+each call's batch indices live on the target's device; only the shuffled
+order is made on the host.  The loss is the mean squared error of one
+output (``loss="mse"``, wine) or the cross-entropy of the logits against
+integer labels (``loss="ce"``, MNIST: a 784-128-10 ReLU network, D =
+101,770, whose ``[N, B, 784]`` batch gather is the largest tensor of a
+call: 411 MB at N = 1,024 samples of B = 128).
 """
 from __future__ import annotations
 
@@ -70,17 +73,23 @@ def _identity(x):
 
 
 class BNN_LNPDF(LNPDF):
-    """A BNN posterior over the flat weights of an MLP regressing one
-    output with a mean-squared-error loss (the JAX package's ``loss="mse"``;
-    its cross-entropy classifier is MNIST's, not ported)."""
+    """A BNN posterior over the flat weights of an MLP: the minibatch loss
+    (``loss``: ``"mse"``, the mean squared error of one output, or
+    ``"ce"``, the cross-entropy of the logits against integer labels)
+    times the training-set size, plus a zero-mean Gaussian prior, all times
+    ``likelihood_scaling``."""
 
     def __init__(self, likelihood_scaling, dataset_seed, prior_std,
-                 batch_size, hidden_units, activations, device="cuda"):
+                 batch_size, hidden_units, loss: str, activations,
+                 device="cuda"):
         super().__init__(safe_for_jit=False)
+        if loss not in ("ce", "mse"):
+            raise ValueError(f"unknown BNN loss '{loss}' (ce or mse)")
         self.device = resolve_device(device)
         self.likelihood_scaling = float(likelihood_scaling)
         self.dataset_seed = dataset_seed
         self.hidden_units = list(hidden_units)
+        self.loss_kind = loss
         self.activations = activations
         self.batch_size = int(batch_size)
 
@@ -124,19 +133,31 @@ class BNN_LNPDF(LNPDF):
     def _log_prior(self, x: torch.Tensor) -> torch.Tensor:
         return -0.5 * torch.sum(torch.square(x / self.prior_std), dim=-1)
 
+    def _loss(self, out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The mean loss over the last batch axis of the network's ``out``
+        ``[..., B, out]`` against ``labels`` ``[..., B]``."""
+        if self.loss_kind == "ce":
+            logp = torch.log_softmax(out, dim=-1)
+            return -torch.mean(torch.gather(logp, -1, labels[..., None]
+                                            )[..., 0], dim=-1)
+        return torch.mean(torch.square(out[..., 0] - labels.to(out.dtype)),
+                          dim=-1)
+
     def _posterior(self, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         """Each sample's posterior on its batch ``rows [N, B]``."""
-        feats = self._x_tr[rows].to(x.dtype)
-        labels = self._y_tr[rows].to(x.dtype)
-        out = mlp_forward(x, feats, self.shapes, self.activations)
-        loss = torch.mean(torch.square(out[..., 0] - labels), dim=-1)
-        return self.likelihood_scaling * (-self.train_size * loss
-                                          + self._log_prior(x))
+        out = mlp_forward(x, self._x_tr[rows].to(x.dtype), self.shapes,
+                          self.activations)
+        return self.likelihood_scaling * (
+            -self.train_size * self._loss(out, self._y_tr[rows])
+            + self._log_prior(x))
+
+    def _next_rows(self, n: int) -> torch.Tensor:
+        return torch.as_tensor(self._next_batches(n),
+                               device=self._x_tr.device)
 
     def log_density_and_grad(self, x: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        rows = torch.as_tensor(self._next_batches(x.shape[0]),
-                               device=self._x_tr.device)
+        rows = self._next_rows(x.shape[0])
         with torch.enable_grad():
             x = x.detach().requires_grad_(True)
             ld = self._posterior(x, rows)
@@ -144,16 +165,26 @@ class BNN_LNPDF(LNPDF):
         return ld.detach(), grads
 
     def log_density(self, x: torch.Tensor) -> torch.Tensor:
-        return self.log_density_and_grad(x)[0]
+        """The posteriors of :meth:`log_density_and_grad` (the same batches
+        taken), without the gradient."""
+        rows = self._next_rows(x.shape[0])
+        with torch.no_grad():
+            return self._posterior(x, rows)
 
     def _bayesian_ensemble_loss(self, x, features, labels):
         """The network's output averaged over the parameter samples ``x``,
-        then its loss and metric (RMSE) on ``features``/``labels``."""
+        then its loss and metric on ``features``/``labels``: the accuracy
+        (``argmax == label``) for ``"ce"``, the RMSE for ``"mse"``."""
         with torch.no_grad():
             out = torch.mean(mlp_forward(x, features.to(x.dtype),
                                          self.shapes, self.activations), 0)
-            loss = torch.mean(torch.square(out[:, 0] - labels.to(x.dtype)))
-        return float(loss), float(torch.sqrt(loss))
+            loss = self._loss(out, labels)
+            if self.loss_kind == "ce":
+                metric = torch.mean((torch.argmax(out, dim=-1) == labels
+                                     ).to(out.dtype))
+            else:
+                metric = torch.sqrt(loss)
+        return float(loss), float(metric)
 
     def expensive_metrics(self, model_state, samples) -> dict:
         """Ensemble loss and metric of the first 64 samples on the test and
@@ -167,6 +198,30 @@ class BNN_LNPDF(LNPDF):
                 "bi_vali_loss": va_loss, "bi_vali_accuracy": va_metric}
 
 
+class BNN_MNIST(BNN_LNPDF):
+    """784-128-10 ReLU classifier, cross-entropy loss; D = 101,770.  The
+    test images are split in half: the first for test, the rest for
+    validation."""
+
+    def __init__(self, likelihood_scaling, prior_std, batch_size,
+                 device="cuda"):
+        super().__init__(
+            likelihood_scaling=likelihood_scaling, prior_std=prior_std,
+            batch_size=batch_size, dataset_seed=-1, hidden_units=[128],
+            loss="ce", activations=[torch.relu, _identity], device=device)
+
+    def prepare_data(self):
+        x_tr, y_tr, x_te, y_te = data_lib.load_mnist()
+        x_tr = x_tr.reshape(len(x_tr), -1).astype(np.float32)
+        x_te = x_te.reshape(len(x_te), -1).astype(np.float32)
+        n_test = len(x_te) // 2
+        return (
+            (x_tr, y_tr.astype(np.int64)),
+            (x_te[:n_test], y_te[:n_test].astype(np.int64)),
+            (x_te[n_test:], y_te[n_test:].astype(np.int64)),
+            784, 10)
+
+
 class BNN_WINE(BNN_LNPDF):
     """11-8-8-1 sigmoid regressor, MSE loss; D = 177."""
 
@@ -175,7 +230,7 @@ class BNN_WINE(BNN_LNPDF):
         super().__init__(
             likelihood_scaling=likelihood_scaling, prior_std=prior_std,
             batch_size=batch_size, dataset_seed=dataset_seed,
-            hidden_units=[8, 8],
+            hidden_units=[8, 8], loss="mse",
             activations=[torch.sigmoid, torch.sigmoid, _identity],
             device=device)
 
@@ -194,6 +249,12 @@ class BNN_WINE(BNN_LNPDF):
         m = super().expensive_metrics(model_state, samples)
         m["bi_vali_rmse"] = m.pop("bi_vali_accuracy")
         return m
+
+
+def make_MNIST_target(likelihood_scaling, prior_std, batch_size,
+                      device="cuda") -> BNN_MNIST:
+    return BNN_MNIST(likelihood_scaling, prior_std, batch_size,
+                     device=device)
 
 
 def make_WINE_target(likelihood_scaling, dataset_seed, prior_std,

@@ -177,22 +177,33 @@ def whitened_diffs(state: GmmState, samples: torch.Tensor) -> torch.Tensor:
 
 def diag_chunks(k: int, n: int, d: int):
     """Component ranges whose ``[k, N, D]`` slabs hold at most
-    ``_DIAG_CHUNK`` elements each."""
+    ``_DIAG_CHUNK`` elements each (one component at least)."""
     step = max(1, _DIAG_CHUNK // max(1, n * d))
     return [(lo, min(lo + step, k)) for lo in range(0, k, step)]
+
+
+def diag_blocks(k: int, n: int, d: int):
+    """``(rows, components)`` ranges of a diagonal model's ``[k, N, D]``
+    intermediates, each block at most ``_DIAG_CHUNK`` elements: all rows
+    at once where one component's ``[N, D]`` fits (every D up to a few
+    hundred), else blocks of ``_DIAG_CHUNK // D`` rows one component at a
+    time (329 rows at MNIST's D = 101,770)."""
+    step = max(1, _DIAG_CHUNK // max(1, d))
+    return [((r0, min(r0 + step, n)), comps) for r0 in range(0, n, step)
+            for comps in diag_chunks(k, min(step, n - r0), d)]
 
 
 def diag_half_maha(means: torch.Tensor, inv_chols: torch.Tensor,
                    samples: torch.Tensor) -> torch.Tensor:
     """``[K, N]`` ``-0.5 ||inv_k (x_n - mu_k)||^2`` of diagonal components
-    (``inv_chols`` ``[K, D]``), a few components at a time."""
+    (``inv_chols`` ``[K, D]``), a block of :func:`diag_blocks` at a time."""
     k, d = means.shape
-    out = []
-    for lo, hi in diag_chunks(k, samples.shape[0], d):
-        y = inv_chols[lo:hi, None, :] * (samples[None, :, :]
+    out = samples.new_empty((k, samples.shape[0]))
+    for (r0, r1), (lo, hi) in diag_blocks(k, samples.shape[0], d):
+        y = inv_chols[lo:hi, None, :] * (samples[None, r0:r1, :]
                                          - means[lo:hi, None, :])
-        out.append(-0.5 * torch.sum(y * y, dim=-1))
-    return torch.cat(out)
+        out[lo:hi, r0:r1] = -0.5 * torch.sum(y * y, dim=-1)
+    return out
 
 
 def component_log_densities(state: GmmState, samples: torch.Tensor
@@ -357,7 +368,7 @@ def _diag_density_pack(state: GmmState, samples: torch.Tensor
     """:func:`density_pack` of a diagonal model, as the JAX package's XLA
     path computes it: responsibilities ``r = exp(log w + comp - model)``
     over the active slots and ``grads = -sum_k r_k inv_k^2 (x - mu_k)``, the
-    ``[k, N, D]`` products a few components at a time."""
+    ``[k, N, D]`` products a block of :func:`diag_blocks` at a time."""
     comp = component_log_densities(state, samples)
     weighted = comp + state.log_weights[:, None]
     model = masked_logsumexp(weighted, mask=state.mask[:, None], dim=0)
@@ -365,11 +376,12 @@ def _diag_density_pack(state: GmmState, samples: torch.Tensor
                        torch.exp(weighted - model[None, :]), 0.0)
     n, d = samples.shape
     grads = torch.zeros_like(samples)
-    for lo, hi in diag_chunks(state.max_components, n, d):
+    for (r0, r1), (lo, hi) in diag_blocks(state.max_components, n, d):
         inv = state.inv_chols[lo:hi, None, :]
-        ptd = inv * (inv * (samples[None, :, :]
+        ptd = inv * (inv * (samples[None, r0:r1, :]
                             - state.means[lo:hi, None, :]))
-        grads = grads - torch.einsum("kn,knd->nd", resp[lo:hi], ptd)
+        grads[r0:r1] = grads[r0:r1] - torch.einsum(
+            "kn,knd->nd", resp[lo:hi, r0:r1], ptd)
     return DensityPack(comp, model, grads)
 
 

@@ -42,7 +42,7 @@ import torch
 
 from gmmvi_tpu_torch.models.gmm import (DensityPack, GmmState, density_pack,
                                         log_densities_also_individual)
-from gmmvi_tpu_torch.models.gmm import diag_chunks, slice_components
+from gmmvi_tpu_torch.models.gmm import diag_blocks, slice_components
 from gmmvi_tpu_torch.ops import stein as stein_ops
 from gmmvi_tpu_torch.ops.more import MAX_D as MORE_MAX_D
 from gmmvi_tpu_torch.ops.more import more_grams, more_grams_plain
@@ -62,7 +62,7 @@ class NgEstimate(NamedTuple):
 def _diag_prec_times_diffs(model: GmmState, samples: torch.Tensor, lo: int,
                            hi: int) -> torch.Tensor:
     """``[hi - lo, N, D]`` ``inv_k * (inv_k * (x - mu_k))`` of a diagonal
-    model's components ``lo:hi``."""
+    model's components ``lo:hi`` at ``samples`` ``[N, D]``."""
     inv = model.inv_chols[lo:hi, None, :]
     return inv * (inv * (samples[None, :, :] - model.means[lo:hi, None, :]))
 
@@ -206,11 +206,12 @@ def stein_estimate(
     grad = reduce.data_sum(w @ log_ratio_grads)                   # [K, D]
     if model.diagonal:
         n, d = samples.shape
-        hess = reduce.data_sum(torch.cat([
-            torch.einsum("kn,nd,knd->kd", w[a:b], log_ratio_grads,
-                         _diag_prec_times_diffs(part, samples, a, b))
-            for a, b in diag_chunks(part.max_components, n, d)]))
-        return NgEstimate(-hess, -grad)
+        hess = torch.zeros_like(grad)
+        for (r0, r1), (a, b) in diag_blocks(part.max_components, n, d):
+            hess[a:b] = hess[a:b] + torch.einsum(
+                "kn,nd,knd->kd", w[a:b, r0:r1], log_ratio_grads[r0:r1],
+                _diag_prec_times_diffs(part, samples[r0:r1], a, b))
+        return NgEstimate(-reduce.data_sum(hess), -grad)
     lam = part.inv_chols.mT @ part.inv_chols                      # [K, D, D]
     # the centroid of every active mean, whichever slots are estimated
     active = model.mask

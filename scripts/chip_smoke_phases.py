@@ -7,9 +7,11 @@ Phases (any of them, in this order; all when none is named):
 ``newton`` (stm300 with newton), ``search`` (the flagship with grid,
 bracket-eigen and newton), ``stm1024``, ``decimate`` (the flagship ZAMTRUX
 with the decimating database and its step-21 witness) and ``gmm20`` (the
-gmm20 runner with prior samples and without a database) and ``mesh`` (the
+gmm20 runner with prior samples and without a database), ``mesh`` (the
 meshed paths M1-M7, ranks on the one card, then B1, B2 and B3's search
-at a rank's shapes).  Each prints the
+at a rank's shapes), ``diagonal`` (diagonal SAMTRON at D = 300),
+``mnist`` (the MNIST BNN at D = 101,770: ``mnist_jax_test`` and
+``mnist_wide``) and ``examples`` (every ``examples_torch/`` script).  Each prints the
 lines the full script prints; ``--rows`` then holds the kernels on these
 paths' last inputs against their plain versions.  ``--save-rebuild DIR``
 writes each watched path's worst rebuilt trust-region update
@@ -29,7 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 PHASES = ("stm300", "newton", "search", "stm1024", "decimate", "gmm20",
-          "mesh")
+          "mesh", "diagonal", "mnist", "examples")
 
 
 def main() -> int:
@@ -66,7 +68,10 @@ def main() -> int:
             *[("gmm20", lambda p=p, c=c: cs.gmm20_variant_phase(
                 dev, p, c, densities)) for p, c in gmm20.items()],
             ("mesh", lambda: cs.mesh_phases(dev)),
-            ("mesh", lambda: cs.mesh_kernel_rows(dev))]
+            ("mesh", lambda: cs.mesh_kernel_rows(dev)),
+            ("diagonal", lambda: cs.diagonal_phase(dev)),
+            ("mnist", lambda: cs.mnist_phase(dev)),
+            ("examples", lambda: cs.examples_phase(dev))]
     failed = 0
     for name, run in runs:
         if name not in want:

@@ -8,7 +8,10 @@ widths; with ``--experiment stm300`` or ``gmm20``, the codename on that
 experiment from ``get_default_config(codename, experiment)``: the 300-D
 Student-T mixture, the runner path's 20-D GMM, which starts from one
 component, so give it a longer ``--warmup``, the 34-D Talos IK posterior
-or the 177-D wine BNN, whose steps take the host-target path), with
+or the 177-D wine BNN, whose steps take the host-target path; or
+``mnist_jax_test`` / ``mnist_wide``, SEMTRON on the MNIST BNN at D =
+101,770 with diagonal covariances as ``chip_smoke.py`` runs them, on the
+synthetic stand-in where no ``mnist.npz`` is found), with
 ``--search`` another trust-region search (``tpu.trust_region_search``) and
 with ``--decimate`` the decimating database (``tpu.db_eviction: decimate``,
 ``max_database_size`` 65,536, as ``chip_smoke.py``'s zamtrux_decimate
@@ -24,7 +27,7 @@ device ms per step for the port's kernels and for the largest other groups.
 
 Run from the repository root on a machine with the card:
 ``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]
-[--experiment stm300 | talos | wine | gmm20 --warmup 600]
+[--experiment stm300 | talos | wine | gmm20 --warmup 600 | mnist_wide]
 [--search newton | grid | bracket-eigen] [--decimate]``.
 """
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main() -> int:
                     choices=("SAMTRON", "ZAMTRUX"))
     ap.add_argument("--experiment", default="flagship",
                     choices=("flagship", "stm300", "gmm20", "talos",
-                             "wine"))
+                             "wine", "mnist_jax_test", "mnist_wide"))
     ap.add_argument("--search", default="bracket",
                     choices=("bracket", "newton", "grid", "bracket-eigen"))
     ap.add_argument("--decimate", action="store_true",
@@ -63,7 +66,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from chip_smoke import DECIMATE_DB_SIZE, D, flagship_config
+    from chip_smoke import DECIMATE_DB_SIZE, D, flagship_config, \
+        mnist_config
     from gmmvi_tpu_torch.configs import get_default_config, update_config
     from gmmvi_tpu_torch.device import resolve_device
     from gmmvi_tpu_torch.experiments.setup import init_experiment
@@ -77,7 +81,12 @@ def main() -> int:
     if args.decimate:
         over = {"max_database_size": DECIMATE_DB_SIZE,
                 "tpu": {**over["tpu"], "db_eviction": "decimate"}}
-    if args.experiment != "flagship":
+    if args.experiment.startswith("mnist"):
+        os.environ.setdefault("GMMVI_ALLOW_SYNTHETIC", "1")
+        args.codename = "SEMTRON"
+        cfg = update_config(mnist_config(args.experiment), over)
+        target, model, meta = init_experiment(cfg, device=dev)
+    elif args.experiment != "flagship":
         cfg = update_config(get_default_config(args.codename,
                                                args.experiment), over)
         target, model, meta = init_experiment(cfg, device=dev)

@@ -18,15 +18,20 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|gmmvi_tpu)\b", re.M)
 
 
 def _port_files():
+    """``chip_smoke.py`` and every Python file of the port's package and of
+    its examples (``examples_torch/``)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(PORT):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in (PORT, os.path.join(REPO, "examples_torch")):
+        for root, _, names in os.walk(top):
+            files += [os.path.join(root, n) for n in names
+                      if n.endswith(".py")]
     return files
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20
+    assert sum("examples_torch" in f for f in files) == 8
     offenders = [f for f in files if _IMPORT.search(open(f).read())]
     assert offenders == []
 
@@ -173,16 +178,27 @@ def _small_samtron():
 
 
 @pytest.mark.parametrize("override,missing", [
-    ({"environment_name": "MNIST", "environment_config": {}}, "MNIST"),
+    ({"environment_name": "MNIST", "environment_config": {
+        "likelihood_scaling": 1.0, "prior_std": 1.0, "batch_size": 32}},
+     "MNIST"),
+    ({"environment_name": "NoSuchTarget", "environment_config": {}},
+     "NoSuchTarget"),
 ])
-def test_paths_not_ported_raise(override, missing):
-    """Every module of the codename matrix is ported, for full and diagonal
-    covariances; what is not raises NotImplementedError naming itself: a
-    target not ported yet where the registry looks it up."""
+def test_paths_not_ported_raise(override, missing, monkeypatch):
+    """Every module and target of the JAX package is ported: the registry
+    builds MNIST (on the synthetic stand-in where no ``mnist.npz`` is found;
+    D = 101,770), and a name it does not know raises ValueError naming it,
+    as the JAX package's registry does."""
     from gmmvi_tpu_torch.experiments.setup import get_target_lnpdf
 
+    monkeypatch.setenv("GMMVI_ALLOW_SYNTHETIC", "1")
     cfg = tcfg.update_config(_small_samtron()[0], override)
-    with pytest.raises(NotImplementedError, match=missing):
+    if missing == "MNIST":
+        target = get_target_lnpdf(cfg["environment_name"],
+                                  cfg["environment_config"], 0, device="cpu")
+        assert target.get_num_dimensions() == 101770
+        return
+    with pytest.raises(ValueError, match=missing):
         get_target_lnpdf(cfg["environment_name"], cfg["environment_config"],
                          0, device="cpu")
 

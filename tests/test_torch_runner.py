@@ -588,14 +588,20 @@ def test_gmm_target_matches_jax(maker):
     assert smp.shape == (64, d) and torch.isfinite(smp).all()
 
 
-def test_target_registry_builds_ported_and_names_missing():
-    """The registry builds the GMM targets, the diagonal one too (ported
-    since; held against JAX in test_torch_targets.py), and names a target
-    that is not ported yet."""
+def test_target_registry_builds_ported_and_names_missing(monkeypatch):
+    """The registry builds the GMM targets, the diagonal one too (held
+    against JAX in test_torch_targets.py) and MNIST (on the synthetic
+    stand-in, D = 101,770; held against JAX in test_torch_mnist.py), and
+    names a target it does not know in a ValueError, as JAX does."""
     from gmmvi_tpu_torch.experiments.setup import get_target_lnpdf
 
-    with pytest.raises(NotImplementedError, match="MNIST"):
-        get_target_lnpdf("MNIST", {}, 0, device="cpu")
+    with pytest.raises(ValueError, match="unknown experiment name: MNIZT"):
+        get_target_lnpdf("MNIZT", {}, 0, device="cpu")
+    monkeypatch.setenv("GMMVI_ALLOW_SYNTHETIC", "1")
+    t = get_target_lnpdf("MNIST", {"likelihood_scaling": 1.0,
+                                   "prior_std": 1.0, "batch_size": 32}, 0,
+                         device="cpu")
+    assert t.get_num_dimensions() == 101770
     t = get_target_lnpdf("GMM", {"num_dimensions": 3}, 0, device="cpu")
     assert t.get_num_dimensions() == 3
     t = get_target_lnpdf("DIAGGMM", {"num_dimensions": 3}, 0, device="cpu")

@@ -391,7 +391,10 @@ def jax_target_in_float64(target):
             if getattr(self, "_grad_fn64", None) is None:
                 self._grad_fn64 = jax.jit(
                     jax.vmap(jax.value_and_grad(self._posterior_one)))
-            return self._grad_fn64(x, f64(feats), f64(labels))
+            # class labels (the cross-entropy BNN) stay integers
+            labels = (jnp.asarray(labels) if labels.dtype.kind in "iu"
+                      else f64(labels))
+            return self._grad_fn64(x, f64(feats), labels)
 
     from gmmvi_tpu.experiments.targets import bnn as jbnn
     from gmmvi_tpu.experiments.targets import talos_ik as jtalos
