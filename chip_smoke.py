@@ -172,13 +172,29 @@ printing one JSON line:
    all-reduced); M4 the flagship SAMTRON on a 2 x 2 ``("data", "comp")``
    mesh, four ranks, 10 steps (B3 on 24-component slices), step 1 held as
    M1's; M5 stm300 on the sharded ring, 20 steps (B5-B7, B7's partial
-   all-reduced); M6 the gmm20 runner with ``tpu: {data_shards: 2}`` and 4
+   all-reduced; its ranks then run phase 8's M5); M6 the gmm20 runner with ``tpu: {data_shards: 2}`` and 4
    slots, 150 steps (grown to 16 slots), a checkpoint after step 125
    resumed by fresh ranks and held equal to the bit at the end; M7 the
    flagship SAMTRON with ``data_shards: 1`` over NCCL, step 1 held as
    M1's (its bits compared too).  M2, M3, M5 and M6 are held to a rising
    ELBO.  Then B1 and B2 at a data rank's 4,800 rows and B3's search on a
-   comp rank's 24 components against their plain versions, with bounds.
+   comp rank's 24 components against their plain versions, with bounds;
+8. compact (``compact_phase``): ``tpu.compact_target_eval`` on and off
+   on four paths, the flagship ZAMTRUX (30 steps), the gmm20 runner config
+   (30), planar_robot_4 (20) and M5 in two ranks over gloo (10), each
+   pair of instances built from the same seed and stepped in lockstep:
+   every step of the on instance is run again by the off instance from
+   the same state with the same draws, and the off state's means and log
+   weights are held to the on state's at the one-step bar (rtol 1e-4 /
+   atol 1e-5), with equal fevals.  One ``{"phase": "compact"}`` line per
+   path and setting: rows per target call (mean, last) beside the valid
+   rows, device-to-host copies per step, the median step, the target's
+   median device ms and share of a step, fevals, launches per step; one
+   ``{"phase": "compact_check"}`` line per path, which also fails the run
+   where, past the first step, a bucket holds more than twice the valid
+   rows (the largest rank's) while that count is above the ladder's
+   floor, where no step's bucket is smaller than the proposal, or where
+   the off setting evaluates fewer rows than the proposal's.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
@@ -4609,6 +4625,14 @@ def mesh_rank(rank: int, nprocs: int, path: str, work: str) -> None:
             collectives_s=coll_s)
     with open(work / f"rank{rank}.json", "w") as fh:
         json.dump(rec, fh)
+    if path == "M5":
+        # the compact phase's M5 in these ranks, saving a spawn
+        import gc
+
+        del gmmvi, target, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+        compact_rank(rank, nprocs, str(work))
 
 
 def mesh_runner_rank(rank: int, dev, work: Path) -> dict:
@@ -4954,6 +4978,275 @@ def mesh_kernel_rows(dev) -> dict:
     return rows
 
 
+# the bucketed target evaluation (tpu.compact_target_eval): each path's
+# steps with the setting on and off in lockstep (the off step from the on
+# run's state, with the same draws); M5 in two ranks over gloo
+COMPACT_PATHS = {"ZAMTRUX": 30, "gmm20": 30, "planar_robot_4": 20, "M5": 10}
+# the one-step bar of the paths' step comparisons, on the means and log
+# weights after every step; steps before COMPACT_WARMUP are not held to the
+# bucket's size
+COMPACT_RTOL, COMPACT_ATOL, COMPACT_WARMUP = 1e-4, 1e-5, 1
+
+
+def compact_gmmvi(path: str, mode: str, dev):
+    """The GMMVI of compact path ``path`` with ``tpu.compact_target_eval``
+    ``mode``, through the entry points: the flagship ZAMTRUX through
+    ``GMMVI.build_from_config``, the gmm20 runner config and
+    planar_robot_4 through ``GmmviRunner.build_from_config`` (its
+    ``gmmvi``), M5 (stm300 on the sharded ring of a 2-rank data mesh,
+    called in every rank) as the mesh phase builds it."""
+    from gmmvi_tpu_torch.configs import get_default_config, update_config
+    from gmmvi_tpu_torch.experiments.setup import init_experiment
+    from gmmvi_tpu_torch.experiments.targets.student_t_mixture import \
+        make_target
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    setting = {"tpu": {"compact_target_eval": mode}}
+    if path == "gmm20":
+        return build_runner(dev, update_config(runner_config(),
+                                               setting)).gmmvi
+    if path == "planar_robot_4":
+        return build_runner(dev, update_config(get_default_config(
+            "SAMTRON", path), setting)).gmmvi
+    if path == "M5":
+        cfg = update_config(mesh_config("M5"), setting)
+        target, model, meta = init_experiment(cfg, device=dev)
+    else:
+        cfg = update_config(flagship_config(codename=path), setting)
+        cfg["target_fn"] = target = make_target(
+            num_dimensions=D, harder_setting=False, seed=0, device=dev)
+        _, model, meta = init_experiment(cfg, device=dev)
+    return GMMVI.build_from_config(cfg, target, model, meta, device=dev)
+
+
+def watch_target(gmmvi, calls: list):
+    """Record each target evaluation of ``gmmvi``'s steps in ``calls``:
+    its rows and a pair of CUDA events around it (read at the end, so the
+    record adds no host sync); returns the undo."""
+    import torch
+
+    evaluate = gmmvi._eval_target
+
+    def call(x):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = evaluate(x)
+        end.record()
+        calls.append((x.shape[0], start, end))
+        return out
+
+    gmmvi._eval_target = call
+    return lambda: setattr(gmmvi, "_eval_target", evaluate)
+
+
+def compact_lockstep(gmmvis: dict, steps: int) -> dict:
+    """``steps`` steps of ``gmmvis["on"]``; each step also run by
+    ``gmmvis["off"]`` from the same state with the same draws (the port's
+    steps make new tensors, so both start from one state object).  Per
+    mode and step: the rows of each target call, its device ms, the valid
+    rows of the proposal (this rank's on a sharded ring), the ladder's
+    size floor, the step's wall seconds and its launches; and per step the
+    largest error of the off state's means and log weights against the on
+    state's over the one-step bar, and both fevals.  Then
+    device-to-host copies per step of each mode (``COPIES_STEPS`` more
+    steps of each under the profiler, from one state with the same
+    draws).  A target call's device ms is the span between events around
+    it: after the bucketed path's read of the count the device waits on
+    the host's launches, which the span then holds."""
+    import numpy as np
+    import torch
+
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.parallel import reduce
+
+    on, off = gmmvis["on"], gmmvis["off"]
+    rec = {m: {"rows": [], "target_ms": [], "valid": [], "proposal": [],
+               "floor": [], "step_s": [], "launches": {}} for m in gmmvis}
+    calls = {m: [] for m in gmmvis}
+    undo = [watch_target(g, calls[m]) for m, g in gmmvis.items()]
+    valid = {m: [] for m in gmmvis}
+    for m, g in gmmvis.items():
+        propose = g._propose_phase
+
+        def recording(state, draws, g=g, propose=propose, into=rec[m]):
+            prop = propose(state, draws)
+            mine = reduce.rows(prop.valid)
+            valid[m].append(mine.sum())
+            into["proposal"].append(mine.shape[0])
+            into["floor"].append(g._eval_buckets[0] if g._eval_buckets
+                                 else None)
+            return prop
+
+        g._propose_phase = recording
+    # the on step's draws and the state they were drawn for (after any
+    # capacity growth), which the off step starts from
+    drawn = []
+    draw = on.draw
+    on.draw = lambda i: drawn.append((on.state, draw(i))) or drawn[-1][1]
+    worst, fevals = [], []
+    for _ in range(steps):
+        drawn.clear()
+        for m, g in (("on", on), ("off", off)):
+            if m == "off":
+                g.state = drawn[-1][0]
+            counts = dict(cuda.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.train_iter(drawn[-1][1] if m == "off" else None)
+            torch.cuda.synchronize()
+            rec[m]["step_s"].append(time.perf_counter() - t0)
+            for k, v in cuda.LAUNCHES.items():
+                rec[m]["launches"][k] = rec[m]["launches"].get(k, 0) \
+                    + v - counts.get(k, 0)
+        got, want = ({k: getattr(g.state.model, k).cpu().numpy()
+                      for k in ("means", "log_weights")} for g in (off, on))
+        worst.append(compare_states(got, want, COMPACT_RTOL,
+                                    COMPACT_ATOL)["worst"][1])
+        fevals.append((int(on.state.db.num_samples_written),
+                       int(off.state.db.num_samples_written)))
+    torch.cuda.synchronize()
+    for m, g in gmmvis.items():
+        rec[m]["rows"] = [n for n, _, _ in calls[m]]
+        rec[m]["target_ms"] = [a.elapsed_time(b) for _, a, b in calls[m]]
+        rec[m]["valid"] = [int(v) for v in valid[m]]
+        del g._propose_phase
+    for u in undo:
+        u()
+    # copies of both settings from one state with the same draws (the
+    # searches' trips, each a flag read, follow the state)
+    drawn.clear()
+    rec["on"]["copies_per_step"] = copies_per_step(on.train_iter)
+    del on.draw
+    off.state, replay = drawn[0][0], iter(drawn)
+    rec["off"]["copies_per_step"] = copies_per_step(
+        lambda: off.train_iter(next(replay)[1]))
+    rec["worst_of_bar"] = worst
+    rec["fevals"] = fevals
+    rec["finite"] = bool(np.isfinite(
+        on.state.model.means.cpu().numpy()).all())
+    return rec
+
+
+def compact_rank(rank: int, nprocs: int, work: str) -> None:
+    """M5 of the compact phase in one rank on cuda:0; its record goes to
+    ``work``/compact<rank>.json."""
+    import torch
+
+    from gmmvi_tpu_torch.device import resolve_device
+
+    torch.cuda.set_device(0)
+    dev = resolve_device("cuda")
+    gmmvis = {m: compact_gmmvi("M5", m, dev) for m in ("on", "off")}
+    rec = compact_lockstep(gmmvis, COMPACT_PATHS["M5"])
+    rec["layout"] = type(gmmvis["on"].state.db).__name__
+    rec["ladder"] = gmmvis["on"]._eval_buckets
+    with open(Path(work) / f"compact{rank}.json", "w") as fh:
+        json.dump(rec, fh)
+
+
+def compact_lines(path: str, recs: list, ladder) -> dict:
+    """One line per mode of compact path ``path`` from its records (one
+    per rank) and the path's check: fevals equal, every step's means and
+    log weights within the one-step bar, the bucket at most twice the
+    valid rows (the largest rank's) past warm-up wherever that count is
+    above the ladder's floor, the bucket smaller than the proposal's rows
+    at some step, and all of them evaluated with the setting off."""
+    import numpy as np
+
+    lines = {}
+    for mode in ("on", "off"):
+        ranks = [r[mode] for r in recs]
+        r0 = ranks[0]
+        step_s = r0["step_s"]
+        lines[mode] = dict(
+            phase="compact", path=path, mode=mode, steps=len(step_s),
+            ranks=len(recs), proposal_rows_last=r0["proposal"][-1],
+            ladder=ladder if mode == "on" else None,
+            rows_per_call_mean=float(np.mean([r["rows"] for r in ranks])),
+            rows_per_call_last=[r["rows"][-1] for r in ranks],
+            valid_rows_mean=float(np.mean([r["valid"] for r in ranks])),
+            valid_rows_last=[r["valid"][-1] for r in ranks],
+            copies_per_step=[r["copies_per_step"] for r in ranks],
+            median_step_ms=statistics.median(step_s[1:]) * 1e3,
+            target_median_ms=statistics.median(r0["target_ms"][1:]),
+            target_share=sum(r0["target_ms"][1:])
+            / (sum(step_s[1:]) * 1e3),
+            fevals=recs[0]["fevals"][-1][0 if mode == "on" else 1],
+            launches_per_step={k: v / len(step_s) for k, v in
+                               r0["launches"].items() if v})
+        emit(lines[mode])
+    on_ranks, off_ranks = [r["on"] for r in recs], [r["off"] for r in recs]
+    too_big = []
+    for i in range(COMPACT_WARMUP, len(on_ranks[0]["rows"])):
+        count = max(r["valid"][i] for r in on_ranks)
+        if count > on_ranks[0]["floor"][i] and any(
+                r["rows"][i] > 2 * count for r in on_ranks):
+            too_big.append(i)
+    check = dict(
+        phase="compact_check", path=path,
+        worst_of_bar=max(max(r["worst_of_bar"]) for r in recs),
+        steps_over_bar=[i for i, w in enumerate(recs[0]["worst_of_bar"])
+                        if w > 1.0],
+        fevals_equal=all(a == b for r in recs for a, b in r["fevals"]),
+        steps_bucket_over_twice_valid=too_big,
+        steps_bucket_below_proposal=sum(
+            any(r["rows"][i] < r["proposal"][i] for r in on_ranks)
+            for i in range(len(on_ranks[0]["rows"]))),
+        off_rows_whole=all(r["rows"] == r["proposal"] for r in off_ranks),
+        finite=all(r["finite"] for r in recs))
+    check["ok"] = (check["worst_of_bar"] <= 1.0 and check["fevals_equal"]
+                   and not too_big and check["steps_bucket_below_proposal"]
+                   > 0 and check["off_rows_whole"] and check["finite"])
+    emit(check)
+    if not check["ok"]:
+        raise AssertionError(f"compact path {path}: {check}")
+    return lines
+
+
+def compact_phase(dev, m5_dir=None) -> dict:
+    """The four compact paths: ZAMTRUX at the flagship widths, the gmm20
+    runner config, planar_robot_4 (here) and M5 (two ranks over gloo on
+    the card), each with ``tpu.compact_target_eval`` on and off in
+    lockstep (:func:`compact_lockstep`), held by :func:`compact_lines`.
+    M5's records are read from ``m5_dir`` where the mesh phase's M5 ranks
+    left them (:func:`mesh_rank`), else its ranks are spawned here."""
+    import gc
+    import shutil
+
+    import torch
+
+    from gmmvi_tpu_torch.parallel.mesh import spawn
+
+    out = {}
+    for path, steps in COMPACT_PATHS.items():
+        t0 = time.perf_counter()
+        if path == "M5":
+            work = m5_dir
+            if work is None:
+                work = BUILD_DIR / "compact"
+                shutil.rmtree(work, ignore_errors=True)
+                work.mkdir(parents=True)
+                spawn(compact_rank, 2, "gloo", args=(str(work),),
+                      timeout_s=MESH_TIMEOUT_S)
+            recs = [json.loads((work / f"compact{r}.json").read_text())
+                    for r in range(2)]
+            if recs[0]["layout"] != "ShardedSampleDbState":
+                raise AssertionError(f"M5 built {recs[0]['layout']}")
+            ladder = recs[0]["ladder"]
+        else:
+            gmmvis = {m: compact_gmmvi(path, m, dev) for m in ("on", "off")}
+            recs = [compact_lockstep(gmmvis, steps)]
+            ladder = gmmvis["on"]._eval_buckets
+            del gmmvis
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[path] = compact_lines(path, recs, ladder)
+        emit({"phase": "timing", "name": f"compact {path}",
+              "s": time.perf_counter() - t0})
+    return out
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the wine BNN seeds its batch order from hash(("bnn", seed)), as
@@ -5050,6 +5343,7 @@ def main() -> int:
     examples_phase(dev)
     mesh_lines = mesh_phases(dev)
     rank_rows = mesh_kernel_rows(dev)
+    compact_phase(dev, m5_dir=BUILD_DIR / "mesh" / "M5")
     for line in mesh_lines.values():
         for name, labelled in line["rank_input_rows"].items():
             on_paths.setdefault(name, {}).update(labelled)

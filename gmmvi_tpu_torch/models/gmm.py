@@ -363,6 +363,15 @@ def density_pack(state: GmmState, samples: torch.Tensor) -> DensityPack:
     return DensityPack(comp, model, grads)
 
 
+def log_density_and_grad(state: GmmState, samples: torch.Tensor):
+    """(model log densities ``[N]``, their gradients ``[N, D]``, component
+    log densities ``[Kmax, N]``) from one :func:`density_pack` (the
+    reference's ``gmm.py`` ``log_density_and_grad``)."""
+    pack = density_pack(state, samples)
+    return (pack.model_log_densities, pack.model_grads,
+            pack.component_log_densities)
+
+
 def _diag_density_pack(state: GmmState, samples: torch.Tensor
                        ) -> DensityPack:
     """:func:`density_pack` of a diagonal model, as the JAX package's XLA

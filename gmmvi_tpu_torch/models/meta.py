@@ -40,6 +40,10 @@ class MetaState:
     def max_components(self) -> int:
         return self.stepsizes.shape[0]
 
+    @property
+    def history_length(self) -> int:
+        return self.reward_history.shape[1]
+
     def replace(self, **kw) -> "MetaState":
         return dataclasses.replace(self, **kw)
 

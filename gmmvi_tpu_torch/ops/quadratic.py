@@ -8,7 +8,8 @@ unregularized bias: the normal equations ``(X^T W X + reg) theta = X^T W y``
 are solved by Cholesky and the coefficients unwhitened.  These are the small
 solves around the MORE Gram kernel (B8, ``ops/more.py``); they stay plain
 PyTorch.  :func:`solve_quadratic_normal_eqs` also takes a leading batch of
-components.  A diagonal sampling Gaussian (``sample_inv_chol`` ``[..., D]``,
+components.  :func:`fit_linear` is the reference's linear fit (``LinFunc``).
+A diagonal sampling Gaussian (``sample_inv_chol`` ``[..., D]``,
 the reciprocals of its standard deviations, with ``diagonal=True``) whitens
 and unwhitens elementwise; the fit is the full quadratic all the same, as
 in the JAX package.
@@ -24,6 +25,26 @@ def triu_indices(dim: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-major upper-triangle indices (i <= j), as ``jnp.triu_indices``."""
     iu = torch.triu_indices(dim, dim, device=device)
     return iu[0], iu[1]
+
+
+def fit_linear(regularizer, inputs: torch.Tensor, outputs: torch.Tensor,
+               weights: torch.Tensor = None,
+               mask: torch.Tensor = None) -> torch.Tensor:
+    """Weighted ridge regression of a linear model with a bias: ``[D + 1]``
+    coefficients, the bias last and not regularized (the reference's
+    ``LinFunc``), solved in the inputs' float type."""
+    n, d = inputs.shape
+    feats = torch.cat([inputs, torch.ones((n, 1), dtype=inputs.dtype,
+                                          device=inputs.device)], dim=1)
+    if weights is None:
+        weights = torch.ones(n, dtype=inputs.dtype, device=inputs.device)
+    if mask is not None:
+        weights = torch.where(mask, weights, 0.0)
+    wf = weights[:, None] * feats
+    reg = regularizer * torch.eye(d + 1, dtype=inputs.dtype,
+                                  device=inputs.device)
+    reg[d, d] = 0.0
+    return torch.linalg.solve(wf.mT @ feats + reg, wf.mT @ outputs)
 
 
 def num_features(dim: int) -> int:

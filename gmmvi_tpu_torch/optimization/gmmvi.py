@@ -16,7 +16,14 @@ fixed.
 A target that is not ``safe_for_jit`` (host state, a Python callable) is
 evaluated on the valid rows only, in a power-of-two bucket, as the JAX
 package's host-target path evaluates it (:meth:`GMMVI._eval_valid_rows`);
-that reads the proposal's mask on the host once a step.
+that reads the proposal's mask on the host once a step.  A safe target is
+evaluated on the whole proposal, or, with ``tpu.compact_target_eval``
+(``auto``: on for the component-based selector with sample reuse, where
+most of the padded ``[Kmax n_des]`` proposal is invalid in steady state),
+on its valid rows moved to the front and cut to the smallest size of a
+ladder of halvings that holds them (:meth:`GMMVI._eval_target_bucketed`),
+as the JAX package evaluates it; the count of valid rows is read on the
+host once a step, where JAX picks the size on the device.
 
 Every random draw of a step comes from the instance's ``torch.Generator``
 unless the caller passes a :class:`StepDraws` with its own.  The iteration
@@ -56,7 +63,11 @@ and the eviction is not ``decimate``, as the JAX package does.  On a
 through the stepsizes, the estimate and the component update (kernel B3's
 search on the slice), and the slices are gathered back.  On the
 host-target path each rank evaluates its own valid rows, in a bucket of
-the next power of two of the largest rank's count.
+the next power of two of the largest rank's count.  The bucketed
+evaluation of a safe target compacts the whole proposal alike on every
+rank of the global layout, each evaluating its block of the bucket; on the
+sharded layout each rank compacts its own rows, in the ladder's size that
+holds the largest rank's count.
 """
 from __future__ import annotations
 
@@ -225,7 +236,8 @@ class GMMVI:
                  device: torch.device, prior_mean=None, prior_cov_diag=None,
                  trust_region_search: str = "bracket",
                  trust_region_grid_size: int = 32, debug_nans: bool = False,
-                 mesh=None):
+                 mesh=None, compact_target_eval: str = "auto",
+                 shard_local_buckets: bool = False):
         if mesh is not None and "data" not in (mesh.mesh_dim_names or ()):
             raise ValueError(
                 f"mesh axes must include 'data' (got {mesh.mesh_dim_names}); "
@@ -257,6 +269,43 @@ class GMMVI:
             self.prior_mean = torch.as_tensor(prior_mean, device=device)
             self.prior_std = torch.sqrt(torch.as_tensor(prior_cov_diag,
                                                         device=device))
+        # > 1: the bucketed target evaluation compacts each rank's own rows
+        # (the sharded layout, whose ranks hold different proposal rows)
+        self._bucket_shards = 1
+        if shard_local_buckets:
+            if mesh is None:
+                raise ValueError(
+                    "shard_local_buckets requires a mesh with a 'data' axis")
+            self._bucket_shards = data_axis_size(mesh)
+        # the ladder of target-evaluation sizes (None: the whole proposal),
+        # enabled on the JAX package's rule
+        if compact_target_eval == "on":
+            enabled = True
+        elif compact_target_eval == "off":
+            enabled = False
+        else:
+            enabled = (selector_cfg.is_vips
+                       and selector_cfg.reused_samples_per_component > 0)
+        self._eval_buckets = None
+        if enabled and target_distribution.safe_for_jit \
+                and selector_cfg.is_vips:
+            self._eval_buckets = self._make_eval_buckets(
+                initial_state.model.max_components)
+
+    def _make_eval_buckets(self, kmax: int):
+        """The ascending sizes ``batch, batch // 2, ...`` down to ``max(
+        ceil(kmax / p), batch // 64)``, ``batch = kmax n_des // p`` with
+        ``p`` the ranks that compact their own rows; None where fewer than
+        two sizes remain (the JAX package's ladder)."""
+        p = self._bucket_shards
+        batch = kmax * self.selector_cfg.desired_samples_per_component // p
+        floor = max(-(-kmax // p), batch // 64)
+        ladder, size = [], batch
+        while size >= floor and size > 0:
+            ladder.append(size)
+            size //= 2
+        buckets = tuple(sorted(set(ladder)))
+        return buckets if len(buckets) >= 2 else None
 
     # ------------------------------------------------------------------
     # Random draws
@@ -449,23 +498,83 @@ class GMMVI:
         out[rows] = grads[last].to(samples.dtype)
         return lnpdfs, out
 
-    def _full_step(self, state: TrainState, draws: StepDraws) -> TrainState:
-        prop = self._propose_phase(state, draws)
+    def _bucket_size(self, n_valid: int) -> int:
+        """The smallest ladder size that holds ``n_valid`` rows (the
+        largest where none does)."""
+        return next((s for s in self._eval_buckets if s >= n_valid),
+                    self._eval_buckets[-1])
+
+    def _eval_target_bucketed(self, samples: torch.Tensor,
+                              valid: torch.Tensor):
+        """A safe target on (roughly) the valid rows only, as the JAX
+        package's ``_eval_target_bucketed`` evaluates it: the valid rows
+        moved to the front in their order (a stable argsort), the first
+        rows of the smallest ladder size that holds them evaluated, and the
+        results scattered back to those rows, zeros in every other.  Every
+        consumer masks invalid rows; the bucket's invalid rows keep the
+        target's values, as in JAX.  ``samples``/``valid`` are the whole
+        proposal, the same on every rank: each rank evaluates its block of
+        the bucket and the blocks are gathered.  Where the ranks compact
+        their own rows (``_bucket_shards > 1``) they are this rank's rows,
+        and the size holds the largest rank's count (one scalar all-reduce
+        over ``data``).  Reads the count on the host (one device-to-host
+        copy)."""
+        b = samples.shape[0]
+        shard_local = self._bucket_shards > 1
+        order = torch.argsort(valid.logical_not().to(torch.uint8),
+                              stable=True)
+        count = valid.sum()
+        if shard_local:
+            count = reduce.data_max(count)
+        rows = order[:self._bucket_size(int(count))]
+        bucket = samples[rows]
+        if shard_local:
+            lnp, grads = self._eval_target(bucket)
+        else:
+            lnp, grads = self._eval_target(reduce.rows(bucket))
+            lnp = reduce.gather_rows(lnp, rows.shape[0])
+            grads = reduce.gather_rows(grads, rows.shape[0])
+        lnpdfs = lnp.new_zeros((b,))
+        lnpdfs[rows] = lnp
+        out = grads.new_zeros((b,) + tuple(grads.shape[1:]))
+        out[rows] = grads
+        return lnpdfs, out
+
+    def _eval_proposal(self, state: TrainState, prop: sel_ops.Proposal):
+        """(lnpdfs, grads) of the target at the proposal: this rank's rows
+        on a row-sharded database, else the whole batch."""
+        b = prop.samples.shape[0]
+        safe = self.target_distribution.safe_for_jit
+        if safe and self._eval_buckets is not None \
+                and self._bucket_shards == 1:
+            # every rank compacts the whole proposal alike
+            lnpdfs, grads = self._eval_target_bucketed(prop.samples,
+                                                       prop.valid)
+            if state.db.row_sharded:
+                lnpdfs, grads = reduce.rows(lnpdfs), reduce.rows(grads)
+            return lnpdfs, grads
         # every rank holds the whole proposal; the target sees its rows
         rows, valid = reduce.rows(prop.samples), reduce.rows(prop.valid)
-        if self.target_distribution.safe_for_jit:
-            lnpdfs, grads = self._eval_target(rows)
-        else:
+        if not safe:
             lnpdfs, grads = self._eval_valid_rows(rows, valid)
-        if state.db.row_sharded:
-            # each rank writes its own rows into its own shard
-            prop = prop._replace(samples=rows, valid=valid,
-                                 mapping=reduce.rows(prop.mapping))
+        elif self._eval_buckets is not None:
+            lnpdfs, grads = self._eval_target_bucketed(rows, valid)
         else:
+            lnpdfs, grads = self._eval_target(rows)
+        if not state.db.row_sharded:
             # a replicated database writes the whole batch
-            b = prop.samples.shape[0]
             lnpdfs = reduce.gather_rows(lnpdfs, b)
             grads = reduce.gather_rows(grads, b)
+        return lnpdfs, grads
+
+    def _full_step(self, state: TrainState, draws: StepDraws) -> TrainState:
+        prop = self._propose_phase(state, draws)
+        lnpdfs, grads = self._eval_proposal(state, prop)
+        if state.db.row_sharded:
+            # each rank writes its own rows into its own shard
+            prop = prop._replace(samples=reduce.rows(prop.samples),
+                                 valid=reduce.rows(prop.valid),
+                                 mapping=reduce.rows(prop.mapping))
         prior_samples, prior_lnpdfs = self._prior_samples(draws)
         return self._update_phase(state, prop, lnpdfs, grads, draws,
                                   prior_samples, prior_lnpdfs)
@@ -490,6 +599,8 @@ class GMMVI:
             db=state.db.repad(new_max_components, new_cap),
             wstep=state.wstep, adapt=state.adapt,
             num_updates=state.num_updates)
+        if self._eval_buckets is not None:
+            self._eval_buckets = self._make_eval_buckets(new_max_components)
 
     def _has_growth_headroom(self) -> bool:
         cfg = self.vips_cfg
@@ -634,8 +745,9 @@ class GMMVI:
         db_eviction = str(tpu_cfg.get("db_eviction", "ring"))
         dist_ring_iters = int(tpu_cfg.get("dist_ring_iters", default_ring))
         batch = kmax * n_des if selector_cfg.is_vips else n_des
-        if _db_layout(str(tpu_cfg.get("db_layout", "auto")), mesh,
-                      db_eviction, batch) == "sharded":
+        layout = _db_layout(str(tpu_cfg.get("db_layout", "auto")), mesh,
+                            db_eviction, batch)
+        if layout == "sharded":
             db = shd_ops.create_sharded_db(
                 dim=d, max_components=kmax, capacity=w_total,
                 dist_ring_iters=dist_ring_iters,
@@ -705,7 +817,11 @@ class GMMVI:
                                                 "bracket")),
             trust_region_grid_size=int(tpu_cfg.get("trust_region_grid_size",
                                                    32)),
-            debug_nans=bool(tpu_cfg.get("debug_nans", False)), mesh=mesh)
+            debug_nans=bool(tpu_cfg.get("debug_nans", False)), mesh=mesh,
+            compact_target_eval=str(tpu_cfg.get("compact_target_eval",
+                                                "auto")),
+            # under the sharded layout each rank compacts its own rows
+            shard_local_buckets=(layout == "sharded"))
 
 
 def _db_layout(layout: str, mesh, db_eviction: str, batch: int) -> str:

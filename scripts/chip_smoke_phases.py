@@ -11,7 +11,9 @@ gmm20 runner with prior samples and without a database), ``mesh`` (the
 meshed paths M1-M7, ranks on the one card, then B1, B2 and B3's search
 at a rank's shapes), ``diagonal`` (diagonal SAMTRON at D = 300),
 ``mnist`` (the MNIST BNN at D = 101,770: ``mnist_jax_test`` and
-``mnist_wide``) and ``examples`` (every ``examples_torch/`` script).  Each prints the
+``mnist_wide``), ``examples`` (every ``examples_torch/`` script) and
+``compact`` (``tpu.compact_target_eval`` on and off in lockstep on
+ZAMTRUX, the gmm20 runner config, planar_robot_4 and M5).  Each prints the
 lines the full script prints; ``--rows`` then holds the kernels on these
 paths' last inputs against their plain versions.  ``--save-rebuild DIR``
 writes each watched path's worst rebuilt trust-region update
@@ -31,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 PHASES = ("stm300", "newton", "search", "stm1024", "decimate", "gmm20",
-          "mesh", "diagonal", "mnist", "examples")
+          "mesh", "diagonal", "mnist", "examples", "compact")
 
 
 def main() -> int:
@@ -71,7 +73,11 @@ def main() -> int:
             ("mesh", lambda: cs.mesh_kernel_rows(dev)),
             ("diagonal", lambda: cs.diagonal_phase(dev)),
             ("mnist", lambda: cs.mnist_phase(dev)),
-            ("examples", lambda: cs.examples_phase(dev))]
+            ("examples", lambda: cs.examples_phase(dev)),
+            # after the mesh phase, M5's compact records come from its ranks
+            ("compact", lambda: cs.compact_phase(
+                dev, m5_dir=cs.BUILD_DIR / "mesh" / "M5" if "mesh" in want
+                else None))]
     failed = 0
     for name, run in runs:
         if name not in want:

@@ -7,15 +7,17 @@ samples per component; or ``ZAMTRUX``, VIPS with sample reuse at the same
 widths; with ``--experiment stm300`` or ``gmm20``, the codename on that
 experiment from ``get_default_config(codename, experiment)``: the 300-D
 Student-T mixture, the runner path's 20-D GMM, which starts from one
-component, so give it a longer ``--warmup``, the 34-D Talos IK posterior
-or the 177-D wine BNN, whose steps take the host-target path; or
+component, so give it a longer ``--warmup``, the planar robot (D = 10,
+600 slots), the 34-D Talos IK posterior or the 177-D wine BNN, whose
+steps take the host-target path; or
 ``mnist_jax_test`` / ``mnist_wide``, SEMTRON on the MNIST BNN at D =
 101,770 with diagonal covariances as ``chip_smoke.py`` runs them, on the
 synthetic stand-in where no ``mnist.npz`` is found), with
 ``--search`` another trust-region search (``tpu.trust_region_search``) and
 with ``--decimate`` the decimating database (``tpu.db_eviction: decimate``,
 ``max_database_size`` 65,536, as ``chip_smoke.py``'s zamtrux_decimate
-path), runs warm-up steps, then
+path), with ``--compact on | off`` that ``tpu.compact_target_eval``
+(default ``auto``), runs warm-up steps, then
 traces ``--steps`` steps with ``torch.profiler``.  Writes the profiler's
 table (sorted by device time) to
 ``<out-dir>/profile_torch_step_<codename>[_<experiment>].txt`` and prints
@@ -23,12 +25,15 @@ one JSON line:
 wall ms per step, device-busy ms per step (the sum of kernel and copy
 times; one stream, so they do not overlap), the idle share, device
 operations (kernels and copies) and device-to-host copies per step, and
-device ms per step for the port's kernels and for the largest other groups.
+device ms per step for the port's kernels and for the largest other groups,
+and the target's rows and device ms per step (CUDA events around each of
+its calls).
 
 Run from the repository root on a machine with the card:
 ``python3 scripts/profile_torch_step.py [--codename ZAMTRUX]
-[--experiment stm300 | talos | wine | gmm20 --warmup 600 | mnist_wide]
-[--search newton | grid | bracket-eigen] [--decimate]``.
+[--experiment stm300 | planar_robot_4 | talos | wine | gmm20 --warmup 600
+| mnist_wide] [--search newton | grid | bracket-eigen] [--decimate]
+[--compact on | off]``.
 """
 from __future__ import annotations
 
@@ -50,12 +55,16 @@ def main() -> int:
     ap.add_argument("--codename", default="SAMTRON",
                     choices=("SAMTRON", "ZAMTRUX"))
     ap.add_argument("--experiment", default="flagship",
-                    choices=("flagship", "stm300", "gmm20", "talos",
-                             "wine", "mnist_jax_test", "mnist_wide"))
+                    choices=("flagship", "stm300", "gmm20",
+                             "planar_robot_4", "talos", "wine",
+                             "mnist_jax_test", "mnist_wide"))
     ap.add_argument("--search", default="bracket",
                     choices=("bracket", "newton", "grid", "bracket-eigen"))
     ap.add_argument("--decimate", action="store_true",
                     help="the decimating database, 65,536 samples")
+    ap.add_argument("--compact", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="tpu.compact_target_eval")
     ap.add_argument("--warmup", type=int, default=30)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--out-dir", default=os.path.join("build", "profile"),
@@ -77,7 +86,8 @@ def main() -> int:
     from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
 
     dev = resolve_device("cuda")
-    over = {"tpu": {"trust_region_search": args.search}}
+    over = {"tpu": {"trust_region_search": args.search,
+                    "compact_target_eval": args.compact}}
     if args.decimate:
         over = {"max_database_size": DECIMATE_DB_SIZE,
                 "tpu": {**over["tpu"], "db_eviction": "decimate"}}
@@ -100,6 +110,19 @@ def main() -> int:
     gmmvi.train_iters(args.warmup)
     torch.cuda.synchronize()
 
+    calls = []
+    evaluate = gmmvi._eval_target
+
+    def timed_target(x):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = evaluate(x)
+        end.record()
+        calls.append((x.shape[0], start, end))
+        return out
+
+    gmmvi._eval_target = timed_target
     cuda.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -108,6 +131,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
+    del gmmvi._eval_target
 
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=60)
@@ -115,7 +139,8 @@ def main() -> int:
     suffix = ("" if args.experiment == "flagship" else
               f"_{args.experiment}") + (
         "" if args.search == "bracket" else f"_{args.search}") + (
-        "_decimate" if args.decimate else "")
+        "_decimate" if args.decimate else "") + (
+        "" if args.compact == "auto" else f"_compact_{args.compact}")
     with open(os.path.join(args.out_dir,
                            f"profile_torch_step_{args.codename}{suffix}.txt"),
               "w") as fh:
@@ -167,6 +192,8 @@ def main() -> int:
         "experiment": args.experiment,
         "search": args.search,
         "decimate": args.decimate,
+        "compact_target_eval": args.compact,
+        "eval_buckets": gmmvi._eval_buckets,
         "warmup": args.warmup,
         "num_active": int(gmmvi.model.num_active),
         "max_components": gmmvi.model.max_components,
@@ -178,6 +205,9 @@ def main() -> int:
         "device_ops_per_step": device_ops / steps,
         "device_to_host_copies_per_step": copies_to_host / steps,
         "device_ms_per_step": {k: v / steps / 1e3 for k, v in top},
+        "target_rows_per_step": sum(n for n, _, _ in calls) / steps,
+        "target_ms_per_step": sum(a.elapsed_time(b) for _, a, b in calls)
+        / steps,
     }
     print(json.dumps(out), flush=True)
     return 0

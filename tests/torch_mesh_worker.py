@@ -14,8 +14,12 @@ codename's default algorithm config), ``dims`` (of the Student-T target),
 or None), ``draws`` (one dict of StepDraws fields per step, or None: the
 generator's), ``steps``, ``float64``, ``checkpoint`` (a step count: save
 there, go on, then resume a fresh GMMVI from the file and step it the same
-way; the resumed states are recorded too).  After every step the
-replicated state is checked equal on every rank.
+way; the resumed states are recorded too), ``safe`` (False: the target
+taken as not ``safe_for_jit``), ``count_rows`` (record the rows of every
+target evaluation, per step).  After every step the replicated state is
+checked equal on every rank.  Other kinds: ``errors`` (the ValueError or
+database of each variant), ``helpers`` (the meshes ``parallel.mesh``
+builds) and ``buckets`` (each variant's target-evaluation ladder).
 """
 from __future__ import annotations
 
@@ -56,6 +60,8 @@ def build(case):
         tcfg.get_default_algorithm_config(case["codename"]),
         case["overrides"])
     target = make_target(case["dims"], False, seed=0, device="cpu")
+    if case.get("safe") is False:
+        target._safe_for_jit = False
     cfg["target_fn"] = target
     _, model, meta = init_experiment(cfg, device="cpu")
     g = GMMVI.build_from_config(cfg, target, model, meta, device="cpu",
@@ -88,9 +94,17 @@ def _gathered(g):
 
 def _steps(g, case, lo, hi, out):
     draws = case.get("draws")
+    rows: list = []
+    if case.get("count_rows"):
+        evaluate = g._eval_target
+        g._eval_target = lambda x: (rows.append(x.shape[0]), evaluate(x))[1]
+        out["rows"] = []
     for i in range(lo, hi):
         reduce.reset_stats()
         g.train_iter(_draws(None if draws is None else draws[i]))
+        if case.get("count_rows"):
+            out["rows"].append(list(rows))
+            rows.clear()
         out["collectives"].append(dict(reduce.STATS))
         mesh_ops.check_replicated(g.state)
         out["states"].append(_gathered(g))
@@ -114,6 +128,18 @@ def _errors(case) -> dict:
                              [str(w.message) for w in caught])
             except ValueError as err:
                 out[name] = str(err)
+    return out
+
+
+def _buckets(case) -> dict:
+    """For each of the case's ``variants`` (codename, overrides, safe), the
+    target-evaluation ladder the port builds on this mesh and its count of
+    ranks that compact their own rows."""
+    out = {}
+    for name, (codename, over, safe) in case["variants"].items():
+        g = build({**case, "codename": codename, "overrides": over,
+                   "safe": safe})
+        out[name] = (g._eval_buckets, g._bucket_shards)
     return out
 
 
@@ -141,6 +167,8 @@ def run_case(rank: int, case: dict, ckpt_path: str) -> dict:
         return _errors(case)
     if kind == "helpers":
         return _helpers(case)
+    if kind == "buckets":
+        return _buckets(case)
     g = build(case)
     out = {"states": [], "collectives": [], "resumed": [],
            "layout": type(g.state.db).__name__}
