@@ -194,7 +194,17 @@ printing one JSON line:
    where, past the first step, a bucket holds more than twice the valid
    rows (the largest rank's) while that count is above the ladder's
    floor, where no step's bucket is smaller than the proposal, or where
-   the off setting evaluates fewer rows than the proposal's.
+   the off setting evaluates fewer rows than the proposal's;
+9. interface (``interface_phase``): the target interface at the
+   flagship widths, SAMTRON on the registry's 20-D Student-T mixture
+   (``use_log_density_and_grad`` True: its analytic gradient) and on an
+   ``LNPDF`` subclass with only ``log_density`` wrapping it (False: the
+   optimizer's autograd), both built through the package's top-level
+   ``configs`` and ``init_experiment``, 30 steps in lockstep (each
+   autograd step from the analytic run's state with the same draws): log
+   densities equal to the bit, gradients within 1e-4 of the largest
+   analytic entry, means, factors and log weights at the one-step bar,
+   equal fevals, B1, B2 and B3 launched on every step of both runs.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
 path that runs it: SAMTRON for B1-B3, ZAMTRUX for B4 and B8, stm300 for
@@ -5247,6 +5257,203 @@ def compact_phase(dev, m5_dir=None) -> dict:
     return out
 
 
+INTERFACE_STEPS = 30
+# the interface phase's bars, set from its rehearsal on the CPU (plain
+# versions, the same widths and steps) before its first run on the card:
+# each step's autograd gradients within INTERFACE_GRAD_FRAC of the step's
+# largest analytic entry (the CPU tests' gradient bar), and the autograd
+# step's state, from the same state with the same draws, within the
+# one-step bar of the analytic step's, each component's mean and factor
+# scaled by that component's largest entry (its float32 rounding is
+# relative to its norm: entry by entry the rehearsal missed the bar 14x,
+# at entries near 0 of means near 100) and the log weights entry by entry;
+# the rehearsal's worst steps: gradients 5.7e-7, state 0.15 of the bar
+INTERFACE_GRAD_FRAC = 1e-4
+INTERFACE_RTOL, INTERFACE_ATOL = 1e-4, 1e-5
+INTERFACE_KERNELS = ("density_pack", "densities", "tr_search")
+
+
+def component_scaled_ratio(got, want, rtol: float, atol: float) -> float:
+    """The largest ``|got - want|`` over ``atol + rtol * max |want[k]|``,
+    each component ``k`` (the leading axis) over its own largest entry."""
+    import numpy as np
+
+    want = want.astype(np.float64)
+    axes = tuple(range(1, want.ndim))
+    scale = atol + rtol * np.abs(want).max(axis=axes, keepdims=True)
+    return float((np.abs(got - want) / scale).max())
+
+
+def interface_config() -> dict:
+    """The flagship SAMTRON (45 components in 48 slots, 200 samples each)
+    with the registry's 20-D Student-T mixture (``environment_name:
+    STM``), the target ``__graft_entry__`` builds."""
+    from gmmvi_tpu_torch import configs
+
+    return configs.update_config(flagship_config(), {
+        "environment_name": "STM",
+        "environment_config": {"num_dimensions": D, "harder_setting": False,
+                               "use_matlab_target": False}})
+
+
+def interface_phase(dev) -> dict:
+    """The target interface at the flagship widths: the registry's
+    Student-T mixture (``use_log_density_and_grad`` True, its analytic
+    gradient) and an ``LNPDF`` subclass that supplies only
+    ``log_density``, wrapping the same target (flag False: the optimizer
+    differentiates it by autograd), each built through the top-level
+    ``configs``, ``init_experiment`` and ``GMMVI.build_from_config``, in
+    lockstep for ``INTERFACE_STEPS`` steps: every step of the analytic
+    run is run again by the autograd run from the same state with the same
+    draws.  Per step: the target's log densities equal to the bit, the
+    autograd gradients on the valid rows within ``INTERFACE_GRAD_FRAC`` of
+    the analytic ones' largest entry, the autograd step's means, factors
+    and log weights within the one-step bar of the analytic step's, equal
+    fevals, and B1, B2 and B3's search launched in each run (counts set to
+    0 just before each step and read just after).  One
+    ``{"phase": "interface"}`` line with both runs' step and target times
+    and the per-step launches, and one ``{"phase": "interface_check"}``
+    line, which fails the run where a check misses."""
+    import numpy as np
+    import torch
+
+    from gmmvi_tpu_torch import LNPDF, init_experiment
+    from gmmvi_tpu_torch.ops import cuda
+    from gmmvi_tpu_torch.optimization.gmmvi import GMMVI
+
+    class LogDensityOnly(LNPDF):
+        """A user's target with only ``log_density`` (the wrapped
+        one's)."""
+
+        def __init__(self, inner):
+            super().__init__(use_log_density_and_grad=False,
+                             safe_for_jit=True)
+            self.inner = inner
+
+        def log_density(self, x):
+            return self.inner.log_density(x)
+
+        def get_num_dimensions(self):
+            return self.inner.get_num_dimensions()
+
+    cfg = interface_config()
+    target, model, meta = init_experiment(cfg, device=dev)
+    wrapped = LogDensityOnly(target)
+    flags = [(t.use_log_density_and_grad, t.safe_for_jit)
+             for t in (target, wrapped)]
+    if flags != [(True, True), (False, True)]:
+        raise AssertionError(f"target flags {flags}")
+    runs = {"analytic": GMMVI.build_from_config(cfg, target, model, meta,
+                                                device=dev)}
+    _, model2, meta2 = init_experiment({**cfg, "target_fn": wrapped},
+                                       device=dev)
+    runs["autograd"] = GMMVI.build_from_config(cfg, wrapped, model2, meta2,
+                                               device=dev)
+    if runs["analytic"].estimator_type != "Stein":
+        raise AssertionError("the flagship is not on the Stein estimator")
+    rec = {m: {"step_s": [], "target_ms": [], "launches": []} for m in runs}
+    evals = {m: [] for m in runs}
+    valid = []
+    for m, g in runs.items():
+        evaluate = g._eval_target
+
+        def call(x, evaluate=evaluate, into=evals[m]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = evaluate(x)
+            end.record()
+            into.append((out, start, end))
+            return out
+
+        g._eval_target = call
+    propose = runs["analytic"]._propose_phase
+
+    def recording(state, draws):
+        prop = propose(state, draws)
+        valid.append(prop.valid)
+        return prop
+
+    runs["analytic"]._propose_phase = recording
+    analytic, autograd = runs["analytic"], runs["autograd"]
+    drawn = []
+    draw = analytic.draw
+    analytic.draw = lambda i: drawn.append((analytic.state, draw(i))) \
+        or drawn[-1][1]
+    t_phase = time.perf_counter()
+    ld_equal, grad_gap, worst, fevals = [], [], [], []
+    for step in range(INTERFACE_STEPS):
+        drawn.clear()
+        for m, g in runs.items():
+            if m == "autograd":
+                g.state = drawn[-1][0]
+            cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.train_iter(drawn[-1][1] if m == "autograd" else None)
+            torch.cuda.synchronize()
+            rec[m]["step_s"].append(time.perf_counter() - t0)
+            rec[m]["launches"].append(
+                {k: v for k, v in cuda.LAUNCHES.items() if v})
+        (a_ld, a_g), _, _ = evals["analytic"][-1]
+        (b_ld, b_g), _, _ = evals["autograd"][-1]
+        ld_equal.append(bool(torch.equal(a_ld, b_ld)))
+        rows = valid[-1]
+        scale = a_g[rows].abs().max()
+        grad_gap.append(float((b_g[rows] - a_g[rows]).abs().max() / scale))
+        got, want = ({k: getattr(g.state.model, k).cpu().numpy()
+                      for k in ("means", "chols", "log_weights")}
+                     for g in (autograd, analytic))
+        worst.append({
+            "log_weights": compare_states(
+                got, want, INTERFACE_RTOL, INTERFACE_ATOL)["ratios"][
+                    "log_weights"],
+            **{k: component_scaled_ratio(got[k], want[k], INTERFACE_RTOL,
+                                         INTERFACE_ATOL)
+               for k in ("means", "chols")}})
+        fevals.append((int(analytic.state.db.num_samples_written),
+                       int(autograd.state.db.num_samples_written)))
+    phase_s = time.perf_counter() - t_phase
+    for m in runs:
+        rec[m]["target_ms"] = [a.elapsed_time(b) for _, a, b in evals[m]]
+    st = analytic.state
+    missing = {m: [i for i, counts in enumerate(rec[m]["launches"])
+                   if not all(counts.get(k, 0) > 0
+                              for k in INTERFACE_KERNELS)]
+               for m in runs}
+    for m in runs:
+        emit(dict(
+            phase="interface", run=m, steps=INTERFACE_STEPS,
+            flag=m == "analytic", first_step_s=rec[m]["step_s"][0],
+            median_step_ms=statistics.median(rec[m]["step_s"][1:]) * 1e3,
+            target_median_ms=statistics.median(rec[m]["target_ms"][1:]),
+            target_rows=int(evals[m][-1][0][0].shape[0]),
+            fevals=fevals[-1][0 if m == "analytic" else 1],
+            launches_per_step={k: [c.get(k, 0) for c in rec[m]["launches"]]
+                               for k in INTERFACE_KERNELS},
+            num_active=int(st.model.num_active)))
+    check = dict(
+        phase="interface_check", seconds=phase_s,
+        lnpdf_equal_steps=sum(ld_equal),
+        grad_gap_max=max(grad_gap), grad_gap_median=statistics.median(
+            grad_gap), grad_bar=INTERFACE_GRAD_FRAC,
+        state_worst_of_bar={k: max(w[k] for w in worst) for k in worst[0]},
+        state_worst_of_bar_median=statistics.median(
+            max(w.values()) for w in worst),
+        fevals_equal=all(a == b for a, b in fevals),
+        steps_without_b1_b2_b3=missing,
+        finite=bool(np.isfinite(st.model.means.cpu().numpy()).all()))
+    check["ok"] = (check["lnpdf_equal_steps"] == INTERFACE_STEPS
+                   and check["grad_gap_max"] <= INTERFACE_GRAD_FRAC
+                   and max(check["state_worst_of_bar"].values()) <= 1.0
+                   and check["fevals_equal"] and check["finite"]
+                   and not any(missing.values()))
+    emit(check)
+    if not check["ok"]:
+        raise AssertionError(f"interface phase: {check}")
+    return check
+
+
 def main() -> int:
     if os.environ.get("PYTHONHASHSEED") != "0":
         # the wine BNN seeds its batch order from hash(("bnn", seed)), as
@@ -5344,6 +5551,7 @@ def main() -> int:
     mesh_lines = mesh_phases(dev)
     rank_rows = mesh_kernel_rows(dev)
     compact_phase(dev, m5_dir=BUILD_DIR / "mesh" / "M5")
+    interface_phase(dev)
     for line in mesh_lines.values():
         for name, labelled in line["rank_input_rows"].items():
             on_paths.setdefault(name, {}).update(labelled)

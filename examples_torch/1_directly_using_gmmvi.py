@@ -9,8 +9,8 @@ import argparse
 import os
 
 import torch
-import yaml
 
+from gmmvi_tpu_torch.configs import load_yaml
 from gmmvi_tpu_torch.experiments.setup import construct_initial_mixture
 from gmmvi_tpu_torch.experiments.targets.logistic_regression import \
     make_breast_cancer
@@ -24,8 +24,7 @@ parser.add_argument("--iterations", type=int, default=1001)
 args = parser.parse_args()
 
 my_path = os.path.dirname(os.path.realpath(__file__))
-with open(os.path.join(my_path, "example_config.yml")) as stream:
-    config = yaml.safe_load(stream)
+config = load_yaml(os.path.join(my_path, "example_config.yml"))
 
 # 1. a target distribution
 target_distribution = make_breast_cancer(device=args.device)

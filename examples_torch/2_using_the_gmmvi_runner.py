@@ -7,8 +7,7 @@ Run from the repository root:
 import argparse
 import os
 
-import yaml
-
+from gmmvi_tpu_torch.configs import load_yaml
 from gmmvi_tpu_torch.runner import GmmviRunner
 
 parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -17,8 +16,7 @@ parser.add_argument("--iterations", type=int, default=10001)
 args = parser.parse_args()
 
 my_path = os.path.dirname(os.path.realpath(__file__))
-with open(os.path.join(my_path, "example_config.yml")) as stream:
-    config = yaml.safe_load(stream)
+config = load_yaml(os.path.join(my_path, "example_config.yml"))
 runner = GmmviRunner.build_from_config(config, device=args.device)
 
 for n in range(args.iterations):

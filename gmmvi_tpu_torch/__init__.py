@@ -3,8 +3,11 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package ``gmmvi_tpu`` with the same config schema,
 codename letters, padded ``[Kmax, ...]`` mixture state and state field
-paths.  Entry points (``GmmviRunner.build_from_config``,
-``iterate_and_log``, ``GMMVI.build_from_config``, ``train_iter``,
+paths, and the JAX package's top-level exports (``configs``,
+``init_experiment``, ``construct_initial_mixture``, ``LNPDF``,
+``GmmState``, ``MetaState``, ``create_gmm_state``, ``GMMVI``,
+``TrainState``, ``GmmviRunner``, ``__version__``).  Entry points
+(``GmmviRunner.build_from_config``, ``iterate_and_log``, ``GMMVI.build_from_config``, ``train_iter``,
 ``train_iters``, ``experiments.setup.init_experiment``) run on the CUDA
 card unless given ``device="cpu"``.
 
@@ -24,8 +27,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+__version__ = "0.1.0"
+
+from gmmvi_tpu_torch import configs
 from gmmvi_tpu_torch.device import resolve_device
-from gmmvi_tpu_torch.models.gmm import GmmState
+from gmmvi_tpu_torch.experiments.setup import (construct_initial_mixture,
+                                               init_experiment)
+from gmmvi_tpu_torch.experiments.targets.lnpdf import LNPDF
+from gmmvi_tpu_torch.models.gmm import GmmState, create_gmm_state
 from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.optimization.component_adaptation import AdaptationState
 from gmmvi_tpu_torch.optimization.gmmvi import GMMVI, StepDraws, TrainState
@@ -128,5 +137,8 @@ def gathered_state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
     return named
 
 
-__all__ = ["GMMVI", "GmmviRunner", "StepDraws", "TrainState",
-           "gathered_state_to_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["configs", "construct_initial_mixture", "init_experiment", "LNPDF",
+           "GmmState", "MetaState", "create_gmm_state", "GMMVI",
+           "TrainState", "GmmviRunner", "StepDraws",
+           "gathered_state_to_numpy", "state_from_numpy", "state_to_numpy",
+           "__version__"]

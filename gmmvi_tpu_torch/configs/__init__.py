@@ -202,6 +202,15 @@ ALL_CODENAME_LETTERS = {
 }
 
 
+def load_yaml(filename: str) -> dict:
+    """The YAML file ``filename`` as a dict (a user's config file, as the
+    examples read theirs; the defaults above are not read from YAML)."""
+    import yaml
+
+    with open(filename, "r") as stream:
+        return yaml.safe_load(stream)
+
+
 def _deep_merge(base: dict, updates: Mapping) -> dict:
     """In-place deep merge with replace semantics for non-dict leaves."""
     for key, value in updates.items():

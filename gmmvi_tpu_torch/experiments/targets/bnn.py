@@ -27,6 +27,7 @@ call: 411 MB at N = 1,024 samples of B = 128).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -35,6 +36,8 @@ import torch
 from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.experiments.targets import datasets as data_lib
 from gmmvi_tpu_torch.experiments.targets.lnpdf import LNPDF
+
+LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _mlp_shapes(input_dim: int, hidden_units: Sequence[int], output_dim: int):
@@ -82,7 +85,7 @@ class BNN_LNPDF(LNPDF):
     def __init__(self, likelihood_scaling, dataset_seed, prior_std,
                  batch_size, hidden_units, loss: str, activations,
                  device="cuda"):
-        super().__init__(safe_for_jit=False)
+        super().__init__(use_log_density_and_grad=True, safe_for_jit=False)
         if loss not in ("ce", "mse"):
             raise ValueError(f"unknown BNN loss '{loss}' (ce or mse)")
         self.device = resolve_device(device)

@@ -30,6 +30,7 @@ class GMM_LNPDF(LNPDF):
 
     def __init__(self, target_weights, target_means, target_covs,
                  make_plots=True, device="cuda", diagonal=False):
+        super().__init__(use_log_density_and_grad=True, safe_for_jit=True)
         self.target_weights = np.asarray(target_weights, np.float32)
         self.target_means = np.asarray(target_means, np.float32)
         self.target_covs = np.asarray(target_covs, np.float32)

@@ -16,11 +16,13 @@ data on every call to
 ``np.random.RandomState(seed)``, so both packages see the same batches
 call for call; with ``use_own_batch_per_sample`` parameter sample i takes
 the i-th of consecutive batches that wrap around the data.  Its
-:meth:`~LogisticRegression_minibatch.log_density_and_grad`, the
-optimizer's call, is autograd as the JAX package's default takes it, one
-sample at a time within one trace: one shuffle, and every sample on the
-first batch.  The data stay on the device; only the shuffled order and the
-batch starts are made on the host.
+``use_log_density_and_grad`` is False, as in the JAX package, so the
+optimizer's call is
+:meth:`~LogisticRegression_minibatch.log_density_and_autograd`, autograd
+as the JAX optimizer's ``vmap(value_and_grad)`` takes it, one sample at a
+time within one trace: one shuffle, and every sample on the first batch.
+The data stay on the device; only the shuffled order and the batch
+starts are made on the host.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ class LogisticRegression(LNPDF):
     """Full-batch Bayesian logistic regression; D = features + 1."""
 
     def __init__(self, dataset_id: str, device="cuda"):
+        super().__init__(use_log_density_and_grad=True, safe_for_jit=True)
         if dataset_id == "breast_cancer":
             x, labels = data_lib.load_breast_cancer()
         elif dataset_id == "german_credit":
@@ -112,8 +115,11 @@ class LogisticRegression_minibatch(LogisticRegression):
                  device="cuda"):
         super().__init__(dataset_id, device=device)
         # host state (the shuffled order): the host-target path, as in the
-        # JAX package; no analytic gradient (autograd, below)
+        # JAX package; the full-batch analytic gradient does not apply to
+        # minibatches, so a first-order estimator differentiates by autograd
+        # (log_density_and_autograd, below)
         self._safe_for_jit = False
+        self._use_log_density_and_grad = False
         data, labels = self.data, self.labels
         if size_test_set > 0:
             self.data_test = data[-size_test_set:]
@@ -131,13 +137,17 @@ class LogisticRegression_minibatch(LogisticRegression):
         self._order = self._order[self._rng.permutation(self.num_data)]
         return torch.as_tensor(self._order, device=self.device)
 
-    def log_density_and_grad(self, x: torch.Tensor
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Values and autograd gradients as the JAX package's default
-        takes them, each sample through its own one-sample call within one
-        trace: one shuffle a call, and every sample on its first batch of
-        ``batchsize`` rows (with ``use_own_batch_per_sample`` too, as a
-        call of one sample takes the first batch)."""
+    # the base class's: autograd (below), not the full-batch gradient
+    log_density_and_grad = LNPDF.log_density_and_grad
+
+    def log_density_and_autograd(self, x: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Values and autograd gradients as the JAX optimizer takes them
+        from a target whose flag is False, each sample through its own
+        one-sample call within one trace: one shuffle a call, and every
+        sample on its first batch of ``batchsize`` rows (with
+        ``use_own_batch_per_sample`` too, as a call of one sample takes the
+        first batch)."""
         with torch.enable_grad():
             theta = self._theta(x).detach().requires_grad_(True)
             ld = self._on_rows(theta, self._shuffle()[:self.batchsize])

@@ -6,8 +6,9 @@ A 10-link planar arm of unit links; prior N(0, diag(1, 0.2^2, ...)) over
 the joint angles; likelihood the largest over the goals of the Gaussian
 density (sigma 1e-2) of the end effector's position.  Forward kinematics
 is a cumulative sum of the angles and a sum of their cosines and sines.
-The gradient is autograd through :meth:`PlanarRobot.log_density` (the
-default of ``LNPDF``).
+Its ``use_log_density_and_grad`` is False, as in the JAX package: the
+gradient is autograd through :meth:`PlanarRobot.log_density`
+(``LNPDF.log_density_and_autograd``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ class PlanarRobot(LNPDF):
     def __init__(self, num_links: int, num_goals: int,
                  prior_std: float = 2e-1, likelihood_std: float = 1e-2,
                  device="cuda"):
+        super().__init__(use_log_density_and_grad=False, safe_for_jit=True)
         self.device = resolve_device(device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self._num_dimensions = num_links

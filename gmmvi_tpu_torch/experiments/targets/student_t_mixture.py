@@ -24,6 +24,7 @@ class StudentTMixture_LNPDF(LNPDF):
 
     def __init__(self, target_weights, target_means, target_covs, alpha=2,
                  make_plots=True, device="cuda"):
+        super().__init__(use_log_density_and_grad=True, safe_for_jit=True)
         dev = resolve_device(device)
         self.make_plots = make_plots
         self.alpha = float(alpha)

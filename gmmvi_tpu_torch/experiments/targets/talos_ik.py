@@ -12,8 +12,9 @@ samples' device.  That round trip is what a host target is.
 :class:`Talos` is the 34-dimensional posterior over the robot's 28 joint
 angles and its floating base (position and roll-pitch-yaw), from the
 forward kinematics of ``talos_reduced.urdf`` (``urdf.py``) in torch.  It
-supplies no gradient of its own: the optimizer differentiates its log
-density by autograd (``LNPDF.log_density_and_grad``).
+supplies no gradient of its own (``use_log_density_and_grad`` False, as
+in the JAX package): the optimizer differentiates its log density by
+autograd (``LNPDF.log_density_and_autograd``).
 """
 from __future__ import annotations
 
@@ -48,7 +49,9 @@ class HostLNPDF(LNPDF):
         log_density_and_grad_fn: Optional[
             Callable[[np.ndarray], Tuple[np.ndarray, np.ndarray]]] = None,
     ):
-        super().__init__(safe_for_jit=False)
+        super().__init__(
+            use_log_density_and_grad=log_density_and_grad_fn is not None,
+            safe_for_jit=False)
         self._dims = int(num_dimensions)
         self._fn = log_density_fn
         self._grad_fn = log_density_and_grad_fn
@@ -76,6 +79,10 @@ class HostLNPDF(LNPDF):
         ld, grad = self._grad_fn(self._to_host(x))
         return self._from_host(ld, x), self._from_host(grad, x)
 
+    # numpy callables have no autograd: a first-order estimator needs the
+    # gradient callable (its flag is then True)
+    log_density_and_autograd = log_density_and_grad
+
 
 class Talos(LNPDF):
     """The 34-DoF Talos inverse-kinematics posterior.
@@ -100,7 +107,7 @@ class Talos(LNPDF):
                          1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
 
     def __init__(self, context, device="cuda"):
-        super().__init__()
+        super().__init__(use_log_density_and_grad=False, safe_for_jit=True)
         self.device = resolve_device(device)
         self.tree = KinematicTree(
             str(data_lib.find("talos_reduced.urdf")), root="base_link",

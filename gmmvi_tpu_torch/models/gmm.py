@@ -206,18 +206,29 @@ def diag_half_maha(means: torch.Tensor, inv_chols: torch.Tensor,
     return out
 
 
+def _log_normalizers(state: GmmState) -> torch.Tensor:
+    """``[Kmax]`` -log|L_k| - D/2 log(2 pi)."""
+    return -chol_log_det(state.chols, state.diagonal) \
+        - 0.5 * state.num_dimensions * LOG_2PI
+
+
+def component_log_densities_from_whitened(state: GmmState, y: torch.Tensor
+                                          ) -> torch.Tensor:
+    """``[Kmax, N]`` per-component Gaussian log densities given the
+    whitened diffs ``y`` ``[Kmax, N, D]`` (:func:`whitened_diffs`), full or
+    diagonal."""
+    return -0.5 * torch.sum(y * y, dim=-1) + _log_normalizers(state)[:, None]
+
+
 def component_log_densities(state: GmmState, samples: torch.Tensor
                             ) -> torch.Tensor:
     """``[Kmax, N]`` log N(x_n; mu_k, Sigma_k); inactive slots give values
     that must be masked."""
-    const = -chol_log_det(state.chols, state.diagonal) \
-        - 0.5 * state.num_dimensions * LOG_2PI
     if state.diagonal:
         maha = diag_half_maha(state.means, state.inv_chols, samples)
-    else:
-        y = whitened_diffs(state, samples)
-        maha = -0.5 * torch.sum(y * y, dim=-1)
-    return maha + const[:, None]
+        return maha + _log_normalizers(state)[:, None]
+    return component_log_densities_from_whitened(
+        state, whitened_diffs(state, samples))
 
 
 def _mixture_of(state: GmmState, comp: torch.Tensor) -> torch.Tensor:
@@ -411,10 +422,16 @@ def average_entropy(state: GmmState) -> torch.Tensor:
         state.mask, component_entropies(state), 0.0))
 
 
-def sample_from_components(state: GmmState, eps: torch.Tensor
+def sample_from_components(state: GmmState, eps: torch.Tensor,
+                           samples_per_component: Optional[int] = None
                            ) -> torch.Tensor:
     """``[Kmax, n, D]`` draws mu_k + L_k eps from standard-normal ``eps``
-    ``[Kmax, n, D]``; the caller masks draws of inactive slots."""
+    ``[Kmax, n, D]`` (``n`` is ``samples_per_component`` where given); the
+    caller masks draws of inactive slots."""
+    if samples_per_component is not None \
+            and eps.shape[1] != samples_per_component:
+        raise ValueError(f"eps holds {eps.shape[1]} draws per component, "
+                         f"not {samples_per_component}")
     if state.diagonal:
         return state.means[:, None, :] + state.chols[:, None, :] * eps
     return state.means[:, None, :] + torch.einsum("kij,knj->kni", state.chols,

@@ -33,13 +33,16 @@ def _amax(a: torch.Tensor, dims) -> torch.Tensor:
 
 
 def masked_logsumexp(a: torch.Tensor, mask=None, dim=None,
-                     keepdim: bool = False, combine_max=_identity,
-                     combine_sum=_identity) -> torch.Tensor:
+                     keepdim: bool = False, return_sign: bool = False,
+                     combine_max=_identity, combine_sum=_identity):
     """logsumexp over ``dim`` treating entries with ``mask == False`` as
     -inf; an entirely masked slice gives -inf.  ``combine_max`` and
     ``combine_sum`` join the partial max and the partial sum of
     exponentials (kept dims) with those of the other blocks of ``dim``
-    (``parallel.reduce.data_max`` and ``data_sum`` over a mesh's ranks)."""
+    (``parallel.reduce.data_max`` and ``data_sum`` over a mesh's ranks).
+    With ``return_sign``, ``(out, sign)`` as the JAX package returns them:
+    the sign 1 where the slice holds an entry and 0 where it is entirely
+    masked, with the kept dims squeezed only where ``dim`` is given."""
     if mask is not None:
         a = torch.where(mask, a, NEG_INF)
     dims = _all_dims(a, dim)
@@ -53,6 +56,11 @@ def masked_logsumexp(a: torch.Tensor, mask=None, dim=None,
     out = torch.where(s > 0, out, NEG_INF)
     if not keepdim:
         out = out.squeeze(dims) if dim is not None else out.reshape(())
+    if return_sign:
+        sign = (s > 0).to(s.dtype)
+        if not keepdim and dim is not None:
+            sign = sign.squeeze(dims)
+        return out, sign
     return out
 
 

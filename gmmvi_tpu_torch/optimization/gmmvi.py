@@ -362,13 +362,19 @@ class GMMVI:
     # Phases
     # ------------------------------------------------------------------
     def _eval_target(self, samples: torch.Tensor):
-        """(lnpdfs, grads) of the target at ``samples``; the grads are zeros
-        when the estimator does not read them (MORE), as in the JAX
-        package."""
+        """(lnpdfs, grads) of the target at ``samples``, as the JAX
+        package's ``_eval_target`` takes them: without a first-order
+        estimator (MORE) ``log_density`` and zero grads; with Stein the
+        target's ``log_density_and_grad`` where its
+        ``use_log_density_and_grad`` flag is True, else the per-sample
+        autograd of its ``log_density`` (``log_density_and_autograd``).
+        Every path of a step evaluates the target here."""
+        target = self.target_distribution
         if self.estimator_type != "Stein":
-            return (self.target_distribution.log_density(samples),
-                    torch.zeros_like(samples))
-        return self.target_distribution.log_density_and_grad(samples)
+            return target.log_density(samples), torch.zeros_like(samples)
+        if target.use_log_density_and_grad:
+            return target.log_density_and_grad(samples)
+        return target.log_density_and_autograd(samples)
 
     def _propose_phase(self, state: TrainState, draws: StepDraws):
         return sel_ops.propose(state.model, state.db, self.selector_cfg,

@@ -81,6 +81,10 @@ class SampleDbState:
         return self.samples.shape[0]
 
     @property
+    def num_dimensions(self) -> int:
+        return self.samples.shape[1]
+
+    @property
     def ring_iters(self) -> int:
         return self.dist_means.shape[0]
 

@@ -60,6 +60,10 @@ class DecimatingDbState:
         return self.samples.shape[0]
 
     @property
+    def num_dimensions(self) -> int:
+        return self.samples.shape[1]
+
+    @property
     def dist_capacity(self) -> int:
         return self.dist_means.shape[0]
 

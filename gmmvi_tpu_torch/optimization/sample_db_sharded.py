@@ -104,6 +104,15 @@ class ShardedSampleDbState:
         return self.samples.shape[1]
 
     @property
+    def capacity_local(self) -> int:
+        """The JAX package's name of :attr:`capacity`."""
+        return self.capacity
+
+    @property
+    def num_dimensions(self) -> int:
+        return self.samples.shape[2]
+
+    @property
     def ring_iters(self) -> int:
         return self.dist_means.shape[0]
 
@@ -115,6 +124,11 @@ class ShardedSampleDbState:
     def reservoir_capacity(self) -> int:
         """One shard's reservoir capacity (the range of its slot draws)."""
         return self.res_samples.shape[1]
+
+    @property
+    def reservoir_capacity_local(self) -> int:
+        """The JAX package's name of :attr:`reservoir_capacity`."""
+        return self.reservoir_capacity
 
     def replace(self, **kw) -> "ShardedSampleDbState":
         return dataclasses.replace(self, **kw)

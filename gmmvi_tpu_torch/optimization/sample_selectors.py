@@ -137,6 +137,19 @@ def _propose_mixture(model: GmmState, win, num_reused: torch.Tensor,
         mapping=mapping.to(torch.int32), num_reused=num_reused)
 
 
+def finalize(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
+             iteration: int, proposal: Proposal, target_lnpdfs: torch.Tensor,
+             target_grads: torch.Tensor, rand_slots: torch.Tensor,
+             accept_u: torch.Tensor):
+    """Pass 2 in its two-pass form: store the evaluated samples and return
+    ``(db, window)``, the window of the newest samples with their
+    background densities (:func:`finalize_fused` without its pack)."""
+    db, win, _ = finalize_fused(model, db, cfg, iteration, proposal,
+                                target_lnpdfs, target_grads, rand_slots,
+                                accept_u)
+    return db, win
+
+
 def finalize_fused(model: GmmState, db: SampleDbState, cfg: SelectorConfig,
                    iteration: int, proposal: Proposal,
                    target_lnpdfs: torch.Tensor, target_grads: torch.Tensor,

@@ -11,10 +11,12 @@ gmm20 runner with prior samples and without a database), ``mesh`` (the
 meshed paths M1-M7, ranks on the one card, then B1, B2 and B3's search
 at a rank's shapes), ``diagonal`` (diagonal SAMTRON at D = 300),
 ``mnist`` (the MNIST BNN at D = 101,770: ``mnist_jax_test`` and
-``mnist_wide``), ``examples`` (every ``examples_torch/`` script) and
+``mnist_wide``), ``examples`` (every ``examples_torch/`` script),
 ``compact`` (``tpu.compact_target_eval`` on and off in lockstep on
-ZAMTRUX, the gmm20 runner config, planar_robot_4 and M5).  Each prints the
-lines the full script prints; ``--rows`` then holds the kernels on these
+ZAMTRUX, the gmm20 runner config, planar_robot_4 and M5) and
+``interface`` (the flagship SAMTRON on the registry's Student-T mixture
+and on a ``log_density``-only ``LNPDF`` wrapping it, in lockstep).  Each
+prints the lines the full script prints; ``--rows`` then holds the kernels on these
 paths' last inputs against their plain versions.  ``--save-rebuild DIR``
 writes each watched path's worst rebuilt trust-region update
 (``chip_smoke.WORST_REBUILD``) to ``DIR/rebuild_<path>.npz`` for
@@ -33,7 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 PHASES = ("stm300", "newton", "search", "stm1024", "decimate", "gmm20",
-          "mesh", "diagonal", "mnist", "examples", "compact")
+          "mesh", "diagonal", "mnist", "examples", "compact", "interface")
 
 
 def main() -> int:
@@ -77,7 +79,8 @@ def main() -> int:
             # after the mesh phase, M5's compact records come from its ranks
             ("compact", lambda: cs.compact_phase(
                 dev, m5_dir=cs.BUILD_DIR / "mesh" / "M5" if "mesh" in want
-                else None))]
+                else None)),
+            ("interface", lambda: cs.interface_phase(dev))]
     failed = 0
     for name, run in runs:
         if name not in want:
