@@ -33,6 +33,7 @@ from gmmvi_tpu_torch.ops import density_large as density_large_ops
 from gmmvi_tpu_torch.ops import mixture_logpdf as mixture_ops
 from gmmvi_tpu_torch.ops.blocked_linalg import tril_inverse
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
+from gmmvi_tpu_torch.utils.profiling import read
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -553,7 +554,8 @@ def add_component(state: GmmState, initial_weight, initial_mean,
                   initial_cov) -> GmmState:
     """Write a component into slot ``num_active`` and renormalize; a no-op
     when the state is full.  ``initial_cov`` is ``[D, D]``, or the
-    variances ``[D]`` of a diagonal model."""
+    variances ``[D]`` of a diagonal model.  A host ``initial_weight`` is
+    copied to the card, which waits for the card (the read ``add``)."""
     k = state.num_active
     kmax = state.max_components
     has_room = k < kmax
@@ -563,8 +565,12 @@ def add_component(state: GmmState, initial_weight, initial_mean,
         new_chol = torch.sqrt(initial_cov)
     else:
         new_chol = torch.linalg.cholesky_ex(initial_cov)[0]
-    initial_weight = torch.as_tensor(initial_weight, dtype=torch.float32,
-                                     device=state.device)
+    def put():
+        return torch.as_tensor(initial_weight, dtype=torch.float32,
+                               device=state.device)
+
+    initial_weight = (put() if isinstance(initial_weight, torch.Tensor)
+                      else read(put, "add"))
     means = torch.where(at_slot[:, None], initial_mean[None, :], state.means)
     sel = at_slot.reshape((kmax,) + (1,) * (state.chols.ndim - 1))
     chols = torch.where(sel, new_chol[None], state.chols)

@@ -16,6 +16,7 @@ import torch
 from gmmvi_tpu_torch.models import gmm as gmm_ops
 from gmmvi_tpu_torch.models.gmm import GmmState
 from gmmvi_tpu_torch.ops.stable import F32_MIN
+from gmmvi_tpu_torch.utils.profiling import read
 
 
 @dataclass
@@ -93,13 +94,19 @@ def add_component_meta(meta: MetaState, slot: torch.Tensor,
                        has_room: torch.Tensor, initial_weight,
                        adding_threshold, initial_entropy) -> MetaState:
     """Meta-state of a component added at ``slot``: reward row F32_MIN,
-    weight row the raw initial weight, a fresh unique id."""
+    weight row the raw initial weight, a fresh unique id.  Each host value
+    is copied to the card, which waits for the card (the reads ``add``)."""
     at = (torch.arange(meta.max_components, device=slot.device) == slot) \
         & has_room
 
+    def on_card(value, dtype, device):
+        def put():
+            return torch.as_tensor(value, dtype=dtype, device=device)
+
+        return put() if isinstance(value, torch.Tensor) else read(put, "add")
+
     def setrow(arr, value):
-        return torch.where(at, torch.as_tensor(value, dtype=arr.dtype,
-                                               device=arr.device), arr)
+        return torch.where(at, on_card(value, arr.dtype, arr.device), arr)
 
     new_id = meta.max_component_id + 1
     return meta.replace(
@@ -109,8 +116,7 @@ def add_component_meta(meta: MetaState, slot: torch.Tensor,
         stepsizes=setrow(meta.stepsizes, meta.initial_stepsize),
         reward_history=torch.where(at[:, None], F32_MIN, meta.reward_history),
         weight_history=torch.where(
-            at[:, None], torch.as_tensor(initial_weight, dtype=torch.float32,
-                                         device=slot.device),
+            at[:, None], on_card(initial_weight, torch.float32, slot.device),
             meta.weight_history),
         unique_component_ids=setrow(meta.unique_component_ids, new_id),
         max_component_id=torch.where(has_room, new_id,

@@ -41,6 +41,7 @@ import torch
 
 from gmmvi_tpu_torch.ops import cuda
 from gmmvi_tpu_torch.ops.stable import F32_MAX
+from gmmvi_tpu_torch.utils.profiling import read
 
 MAX_D = 64
 MAX_TRIPS = 1000
@@ -134,7 +135,8 @@ def bracket_search(kl_eval: Callable, kl_bound, lower0, upper0,
     ``kl_eval`` of etas [K] -> KLs [K], then masked bracket updates.  A
     component stops when the bracket (in eta space) is narrower than 0.1 or
     |KL - bound| < 0.1 bound; the loop stops when all have, at most 1000
-    trips, reading one "all done" flag per trip.  Returns ``(exp(lower),
+    trips, reading one "all done" flag per trip (the read
+    ``tr_search``).  Returns ``(exp(lower),
     exp(upper), trips)``, ``trips`` the loop's trips (an int) or, with
     ``per_component_trips``, the trips each component took before it
     stopped ([K] int32, one more device op per trip): what a loop per
@@ -149,7 +151,7 @@ def bracket_search(kl_eval: Callable, kl_bound, lower0, upper0,
     trips = 0
     each = (torch.zeros((k,), dtype=torch.int32, device=dev)
             if per_component_trips else None)
-    while trips < MAX_TRIPS and not bool(done.all()):
+    while trips < MAX_TRIPS and not read(done.all(), "tr_search"):
         act = torch.logical_not(done)
         if per_component_trips:
             each += act
@@ -190,7 +192,8 @@ def newton_search(kl_grad_eval: Callable, kl_bound, lower0, upper0,
     where the step leaves it, the slope is not negative or the point is
     infeasible).  ``warm_t`` [K] is the starting log eta (the bracket's
     midpoint where it is not finite).  A component that stops keeps its
-    carry, as JAX's ``while_loop`` under ``vmap`` keeps it.  Returns
+    carry, as JAX's ``while_loop`` under ``vmap`` keeps it.  Reads one
+    flag per trip (the read ``tr_search``).  Returns
     ``(exp(lower), exp(upper), trips)``."""
     k = lower0.shape[0]
     dev = lower0.device
@@ -201,7 +204,7 @@ def newton_search(kl_grad_eval: Callable, kl_bound, lower0, upper0,
     done = (torch.zeros((k,), dtype=torch.bool, device=dev)
             if active is None else torch.logical_not(active))
     trips = 0
-    while trips < MAX_TRIPS and not bool(done.all()):
+    while trips < MAX_TRIPS and not read(done.all(), "tr_search"):
         act = torch.logical_not(done)
         kl, dkl = kl_grad_eval(torch.exp(t))
         good = torch.abs(kl_bound - kl) < 1e-1 * kl_bound

@@ -27,6 +27,7 @@ from gmmvi_tpu_torch.models import meta as meta_ops
 from gmmvi_tpu_torch.models.gmm import LOG_2PI, GmmState
 from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.ops.stable import F32_MIN
+from gmmvi_tpu_torch.utils.profiling import read
 
 
 @dataclass
@@ -131,7 +132,9 @@ def add_new_component(model: GmmState, meta: MetaState,
     between the model's average entropy and the prior's.  A candidate's
     reward is ``target - max(max_model_ld - threshold, model_ld)`` with a
     threshold that cycles through the list; the new covariance is
-    isotropic with the desired entropy."""
+    isotropic with the desired entropy.  The thresholds' copy to the card
+    and the two indexes by a device scalar wait for the card (the reads
+    ``add``)."""
     samples, lnpdfs, valid = db.get_random_samples(
         db_draw, cfg.num_database_samples)
     if prior_samples is not None:
@@ -142,11 +145,12 @@ def add_new_component(model: GmmState, meta: MetaState,
                                              device=valid.device)])
         db = db.replace(num_samples_written=db.num_samples_written
                         + prior_samples.shape[0])
-    thresholds = torch.tensor(cfg.thresholds_for_add_heuristic,
-                              dtype=torch.float32, device=model.device)
+    thresholds = read(lambda: torch.tensor(
+        cfg.thresholds_for_add_heuristic, dtype=torch.float32,
+        device=model.device), "add")
     t_idx = torch.remainder(adapt.num_calls_to_add_heuristic,
                             thresholds.shape[0]).long()
-    threshold = thresholds[t_idx]
+    threshold = read(lambda: thresholds[t_idx], "add")
     adapt = adapt.replace(
         num_calls_to_add_heuristic=adapt.num_calls_to_add_heuristic + 1)
 
@@ -159,7 +163,8 @@ def add_new_component(model: GmmState, meta: MetaState,
     max_ld = torch.max(torch.where(valid, model_ld, -torch.inf))
     rewards = lnpdfs - torch.maximum(max_ld - threshold, model_ld)
     rewards = torch.where(valid, rewards, -torch.inf)
-    new_mean = samples[torch.argmax(rewards)]
+    best = torch.argmax(rewards)
+    new_mean = read(lambda: samples[best], "add")
 
     d = model.num_dimensions
     c = torch.exp(2.0 * (des_entropy - 0.5 * d * (LOG_2PI + 1.0)) / d)

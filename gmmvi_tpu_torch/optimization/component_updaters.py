@@ -37,6 +37,11 @@ direct KL, or the diagonal one; the smallest feasible eta) and
 whitened curvature, elementwise per trip, and its own rebuild).  A
 diagonal model takes the bracket for ``newton`` and ``bracket-eigen``, as
 in the JAX package.
+
+Every search but the grid counts its trips under ``tr_search.trips``
+(``utils.profiling``): the most trips any component took, the host loop's
+own count, or for the fused search the largest entry of its per-component
+trips, gathered on the card.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from gmmvi_tpu_torch.ops.trust_region import MAX_D as TR_KERNEL_MAX_D
 from gmmvi_tpu_torch.ops.trust_region import (bracket_search, grid_search,
                                               newton_search,
                                               prepare_tr_kl_inputs, tr_search)
+from gmmvi_tpu_torch.utils.profiling import count, gather_max
 
 SEARCHES = ("bracket", "newton", "grid", "bracket-eigen")
 
@@ -370,9 +376,10 @@ def _trust_region_update_eigen(model: GmmState, meta: MetaState,
     c = torch.einsum("kji,kj->ki", u, zm)
     b = torch.einsum("kji,kj->ki", u,
                      torch.einsum("kji,kj->ki", chols, reward_lin))
-    exp_lower, exp_upper, _ = bracket_search(
+    exp_lower, exp_upper, trips = bracket_search(
         lambda etas: _tr_kl_eigen(etas, lam, c, b), stepsizes, lower0,
         upper0, active=model.mask)
+    count("tr_search.trips", trips)
     eta = torch.clamp(exp_lower, min=temperature)
     kl = _tr_kl_eigen(eta, lam, c, b)
     denom = eta[:, None] + lam
@@ -438,9 +445,10 @@ def _trust_region_update_diag(model: GmmState, meta: MetaState,
                                     lower0, upper0, grid_size)
         eta = torch.clamp(eta0, min=temperature)
     else:
-        exp_lower, exp_upper, _ = bracket_search(
+        exp_lower, exp_upper, trips = bracket_search(
             lambda etas: kl_at(etas)[0], stepsizes, lower0, upper0,
             active=model.mask)
+        count("tr_search.trips", trips)
         eta = torch.clamp(exp_lower, min=temperature)
         success = exp_lower == exp_upper
     kl, new_means, inv_chol_p = kl_at(eta)
@@ -498,21 +506,23 @@ def trust_region_update(model: GmmState, meta: MetaState,
     else:
         if search == "bracket" and \
                 model.num_dimensions <= TR_KERNEL_MAX_D:
-            exp_lower, exp_upper, _ = tr_search(inp, stepsizes, lower0,
-                                                upper0, model.mask)
+            exp_lower, exp_upper, trips = tr_search(inp, stepsizes, lower0,
+                                                    upper0, model.mask)
+            gather_max("tr_search.trips", trips)
         else:
             m_w, c, b1 = _tr_whitened_precompute(means, chols, inv_chols,
                                                  reward_lin, reward_quad)
             if search == "newton":
-                exp_lower, exp_upper, _ = newton_search(
+                exp_lower, exp_upper, trips = newton_search(
                     lambda etas: _tr_kl_whitened_grad(etas, m_w, c, b1),
                     stepsizes, lower0, upper0,
                     _newton_start(m_w, c, b1, stepsizes, last),
                     active=model.mask)
             else:
-                exp_lower, exp_upper, _ = bracket_search(
+                exp_lower, exp_upper, trips = bracket_search(
                     lambda etas: _tr_kl_whitened(etas, m_w, c, b1),
                     stepsizes, lower0, upper0, active=model.mask)
+            count("tr_search.trips", trips)
         eta = torch.clamp(exp_lower, min=temperature)
         success = exp_lower == exp_upper
 

@@ -104,6 +104,7 @@ from gmmvi_tpu_torch.optimization.stepsize_adapters import \
     WeightStepsizeState
 from gmmvi_tpu_torch.parallel import reduce
 from gmmvi_tpu_torch.parallel.mesh import data_axis_size, mesh_from_config
+from gmmvi_tpu_torch.utils.profiling import count, read, span
 
 
 @dataclass
@@ -180,7 +181,7 @@ def _has_nan(state: "TrainState") -> bool:
              for t in vars(part).values()
              if isinstance(t, torch.Tensor) and t.is_floating_point()]
     # on a sharded database the ranks' states differ: all stop or none
-    return bool(reduce.data_max(torch.stack(flags).any()))
+    return read(reduce.data_max(torch.stack(flags).any()), "nan_check")
 
 
 # the meta-state leaves that steps 1-3 of an update may change
@@ -368,13 +369,16 @@ class GMMVI:
         target's ``log_density_and_grad`` where its
         ``use_log_density_and_grad`` flag is True, else the per-sample
         autograd of its ``log_density`` (``log_density_and_autograd``).
-        Every path of a step evaluates the target here."""
+        Every path of a step evaluates the target here (the prior samples
+        aside), in a span ``target.call``."""
         target = self.target_distribution
-        if self.estimator_type != "Stein":
-            return target.log_density(samples), torch.zeros_like(samples)
-        if target.use_log_density_and_grad:
-            return target.log_density_and_grad(samples)
-        return target.log_density_and_autograd(samples)
+        count("target.rows", samples.shape[0])
+        with span("target.call"):
+            if self.estimator_type != "Stein":
+                return target.log_density(samples), torch.zeros_like(samples)
+            if target.use_log_density_and_grad:
+                return target.log_density_and_grad(samples)
+            return target.log_density_and_autograd(samples)
 
     def _propose_phase(self, state: TrainState, draws: StepDraws):
         return sel_ops.propose(state.model, state.db, self.selector_cfg,
@@ -387,7 +391,9 @@ class GMMVI:
             return None, None
         samples = self.prior_mean[None, :] + self.prior_std[None, :] \
             * draws.prior_eps
-        lnpdfs = self.target_distribution.log_density(samples)
+        count("target.rows", samples.shape[0])
+        with span("target.call"):
+            lnpdfs = self.target_distribution.log_density(samples)
         return samples, lnpdfs.to(samples.dtype)
 
     def _update_phase(self, state: TrainState, prop: sel_ops.Proposal,
@@ -395,18 +401,21 @@ class GMMVI:
                       draws: StepDraws, prior_samples=None,
                       prior_lnpdfs=None) -> TrainState:
         iteration = state.num_updates
-        db, window, pack = sel_ops.finalize_fused(
-            state.model, state.db, self.selector_cfg, iteration, prop,
-            lnpdfs, grads, draws.rand_slots, draws.accept_u)
+        with span("finalize"):
+            db, window, pack = sel_ops.finalize_fused(
+                state.model, state.db, self.selector_cfg, iteration, prop,
+                lnpdfs, grads, draws.rand_slots, draws.accept_u)
         model, meta, wstep = self._run_updates(state.model, state.meta,
                                                state.wstep, window, pack)
         num_updates = iteration + 1
         adapt = state.adapt
         if self.vips_cfg is not None:
-            model, meta, adapt, db = adapt_ops.adapt_number_of_components(
-                model, meta, adapt, db, self.vips_cfg, num_updates,
-                draws.db_perm if db.uses_reservoir else draws.db_u,
-                draws.add_a, prior_samples, prior_lnpdfs)
+            with span("adapt"):
+                model, meta, adapt, db = \
+                    adapt_ops.adapt_number_of_components(
+                        model, meta, adapt, db, self.vips_cfg, num_updates,
+                        draws.db_perm if db.uses_reservoir else draws.db_u,
+                        draws.add_a, prior_samples, prior_lnpdfs)
         return TrainState(model=model, meta=meta, db=db, wstep=wstep,
                           adapt=adapt, num_updates=num_updates)
 
@@ -417,20 +426,58 @@ class GMMVI:
         ``comp`` axis steps 1-3 take this rank's slice of the components
         (``gmm_ops.slice_components``, :func:`_slice_meta`) and
         :func:`_gather_components` puts the model and the meta-state
-        together again."""
+        together again.  The estimate (span ``estimate``) is taken before
+        the component stepsizes, which it does not read, so that the
+        stepsizes and the component update are one span (``update``); the
+        weight stepsize and update are the span ``weights``."""
         kmax = model.max_components
         lo, hi = reduce.comp_range(kmax)
         sliced = (lo, hi) != (0, kmax)
         model_c, meta_c = ((gmm_ops.slice_components(model, lo, hi),
                             _slice_meta(meta, lo, hi)) if sliced
                            else (model, meta))
-        # 1. component stepsizes
-        new_stepsizes = step_ops.COMPONENT_STEPSIZE_ADAPTERS[
-            self.component_stepsize_type](meta_c,
-                                          self.component_stepsize_cfg)
-        meta_c = meta_c.replace(stepsizes=torch.where(
-            model_c.mask, new_stepsizes, meta_c.stepsizes))
-        # 2. natural-gradient estimate
+        with span("estimate"):
+            est = self._estimate(model, meta_c, window, pack, sliced, lo, hi)
+        with span("update"):
+            # 1. component stepsizes
+            new_stepsizes = step_ops.COMPONENT_STEPSIZE_ADAPTERS[
+                self.component_stepsize_type](meta_c,
+                                              self.component_stepsize_cfg)
+            meta_c = meta_c.replace(stepsizes=torch.where(
+                model_c.mask, new_stepsizes, meta_c.stepsizes))
+            # 3. component update
+            upd_kw = dict(temperature=self.temperature)
+            if self.updater_type == "trust-region":
+                upd_kw.update(search=self.trust_region_search,
+                              grid_size=self.trust_region_grid_size)
+            model_c, meta_c = upd_ops.UPDATERS[self.updater_type](
+                model_c, meta_c, est.expected_hessians_neg,
+                est.expected_gradients_neg, meta_c.stepsizes, **upd_kw)
+            if sliced:
+                model, meta = _gather_components(model, meta, model_c,
+                                                 meta_c)
+            else:
+                model, meta = model_c, meta_c
+        with span("weights"):
+            # 4. weight stepsize
+            wstep = step_ops.WEIGHT_STEPSIZE_ADAPTERS[
+                self.weight_stepsize_type](wstep, model, meta,
+                                           self.weight_stepsize_cfg)
+            # 5. weight update (stores the component rewards)
+            elr, meta = w_ops.expected_log_ratios(
+                model, meta, window.samples, window.valid,
+                window.background_log_pdfs, window.target_lnpdfs,
+                self.temperature,
+                self.weight_updater_cfg[
+                    "use_self_normalized_importance_weights"])
+            model, meta = w_ops.WEIGHT_UPDATERS[self.weight_updater_type](
+                model, meta, elr, wstep.stepsize, self.temperature)
+        return model, meta, wstep
+
+    def _estimate(self, model: GmmState, meta_c: MetaState, window, pack,
+                  sliced: bool, lo: int, hi: int):
+        """2. The natural-gradient estimate (Stein or MORE) on the window,
+        for this rank's slice of the components where ``sliced``."""
         est_kw = dict(
             use_self_normalized_importance_weights=self.estimator_cfg[
                 "use_self_normalized_importance_weights"],
@@ -439,39 +486,14 @@ class GMMVI:
         if sliced:
             est_kw.update(comp_slice=(lo, hi))
         if self.estimator_type == "MORE":
-            est = est_ops.more_estimate(
+            return est_ops.more_estimate(
                 model, window.samples, window.valid, window.mapping,
                 window.background_log_pdfs, window.target_lnpdfs,
                 meta_c.l2_regularizers, **est_kw)
-        else:
-            est = est_ops.stein_estimate(
-                model, window.samples, window.valid, window.mapping,
-                window.background_log_pdfs, window.target_lnpdfs,
-                window.target_grads, **est_kw)
-        # 3. component update
-        upd_kw = dict(temperature=self.temperature)
-        if self.updater_type == "trust-region":
-            upd_kw.update(search=self.trust_region_search,
-                          grid_size=self.trust_region_grid_size)
-        model_c, meta_c = upd_ops.UPDATERS[self.updater_type](
-            model_c, meta_c, est.expected_hessians_neg,
-            est.expected_gradients_neg, meta_c.stepsizes, **upd_kw)
-        if sliced:
-            model, meta = _gather_components(model, meta, model_c, meta_c)
-        else:
-            model, meta = model_c, meta_c
-        # 4. weight stepsize
-        wstep = step_ops.WEIGHT_STEPSIZE_ADAPTERS[self.weight_stepsize_type](
-            wstep, model, meta, self.weight_stepsize_cfg)
-        # 5. weight update (stores the component rewards)
-        elr, meta = w_ops.expected_log_ratios(
-            model, meta, window.samples, window.valid,
+        return est_ops.stein_estimate(
+            model, window.samples, window.valid, window.mapping,
             window.background_log_pdfs, window.target_lnpdfs,
-            self.temperature,
-            self.weight_updater_cfg["use_self_normalized_importance_weights"])
-        model, meta = w_ops.WEIGHT_UPDATERS[self.weight_updater_type](
-            model, meta, elr, wstep.stepsize, self.temperature)
-        return model, meta, wstep
+            window.target_grads, **est_kw)
 
     def _eval_valid_rows(self, samples: torch.Tensor, valid: torch.Tensor):
         """The host-target path (a target with ``safe_for_jit`` False), as
@@ -483,12 +505,14 @@ class GMMVI:
         the CPU.  A stateful target (a minibatch cursor) so sees the rows,
         in the order, that the JAX package gives it."""
         b, d = samples.shape
-        idx = np.flatnonzero(valid.cpu().numpy())
+        idx = np.flatnonzero(read(lambda: valid.cpu().numpy(),
+                                  "host_target"))
+        count("target.valid_rows", len(idx))
         n_valid = len(idx)
         if reduce.data_size() > 1:
             # every rank's bucket fits the largest rank's valid rows
-            n_valid = int(reduce.data_max(torch.tensor(
-                n_valid, device=samples.device)))
+            n_valid = read(reduce.data_max(torch.tensor(
+                n_valid, device=samples.device)), "host_target.ranks")
         bucket = min(1 << max(n_valid - 1, 0).bit_length(), b)
         padded = np.zeros(bucket, np.int64)
         padded[:len(idx)] = idx
@@ -524,15 +548,19 @@ class GMMVI:
         their own rows (``_bucket_shards > 1``) they are this rank's rows,
         and the size holds the largest rank's count (one scalar all-reduce
         over ``data``).  Reads the count on the host (one device-to-host
-        copy)."""
+        copy, the read ``bucket``); counts it under ``target.valid_rows``
+        where it is this rank's."""
         b = samples.shape[0]
         shard_local = self._bucket_shards > 1
         order = torch.argsort(valid.logical_not().to(torch.uint8),
                               stable=True)
-        count = valid.sum()
+        n_valid = valid.sum()
         if shard_local:
-            count = reduce.data_max(count)
-        rows = order[:self._bucket_size(int(count))]
+            n_valid = reduce.data_max(n_valid)
+        n_valid = read(n_valid, "bucket")
+        if not shard_local:
+            count("target.valid_rows", n_valid)
+        rows = order[:self._bucket_size(n_valid)]
         bucket = samples[rows]
         if shard_local:
             lnp, grads = self._eval_target(bucket)
@@ -574,14 +602,16 @@ class GMMVI:
         return lnpdfs, grads
 
     def _full_step(self, state: TrainState, draws: StepDraws) -> TrainState:
-        prop = self._propose_phase(state, draws)
-        lnpdfs, grads = self._eval_proposal(state, prop)
+        with span("propose"):
+            prop = self._propose_phase(state, draws)
+        with span("target"):
+            lnpdfs, grads = self._eval_proposal(state, prop)
+            prior_samples, prior_lnpdfs = self._prior_samples(draws)
         if state.db.row_sharded:
             # each rank writes its own rows into its own shard
             prop = prop._replace(samples=reduce.rows(prop.samples),
                                  valid=reduce.rows(prop.valid),
                                  mapping=reduce.rows(prop.mapping))
-        prior_samples, prior_lnpdfs = self._prior_samples(draws)
         return self._update_phase(state, prop, lnpdfs, grads, draws,
                                   prior_samples, prior_lnpdfs)
 
@@ -622,7 +652,7 @@ class GMMVI:
             return
         cfg = self.vips_cfg
         kmax = self.state.model.max_components
-        if int(self.state.model.num_active) >= kmax:
+        if read(self.state.model.num_active, "grow") >= kmax:
             new_kmax = min(cfg.max_components,
                            (max(2 * kmax, kmax + 8) + 7) // 8 * 8)
             warnings.warn(
@@ -648,11 +678,16 @@ class GMMVI:
     def train_iter(self, draws: Optional[StepDraws] = None) -> None:
         """Advance one iteration, with ``draws`` or fresh generator draws
         (made after any capacity growth, at the grown shapes).  On a mesh
-        every rank calls it, with the same draws."""
-        with reduce.scope(self.mesh):
-            self._maybe_grow()
+        every rank calls it, with the same draws.  While tracing is on
+        (``utils.profiling``) the step is the span ``train_iter`` around
+        ``grow``, ``draw``, ``propose``, ``target``, ``finalize``,
+        ``estimate``, ``update``, ``weights`` and ``adapt``."""
+        with span("train_iter"), reduce.scope(self.mesh):
+            with span("grow"):
+                self._maybe_grow()
             if draws is None:
-                draws = self.draw(self.state.num_updates)
+                with span("draw"):
+                    draws = self.draw(self.state.num_updates)
             state = self._full_step(self.state, draws)
             if self.debug_nans and _has_nan(state):
                 # the step again, op by op, to name where the NaN came from

@@ -50,6 +50,7 @@ from gmmvi_tpu_torch.device import resolve_device
 from gmmvi_tpu_torch.models.gmm import DensityPack, GmmState, density_pack
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 from gmmvi_tpu_torch.parallel import reduce
+from gmmvi_tpu_torch.utils.profiling import read
 from gmmvi_tpu_torch.optimization.sample_window import (
     SampleWindow, background, count_bins, rank_window, select_dists)
 
@@ -196,7 +197,8 @@ def add_samples(db: SampleDbState, iteration: int, model: GmmState,
 
 def snapshot_dists(db, iteration: int, model: GmmState):
     """``db`` with the current components in the distribution ring's row
-    ``iteration % R``."""
+    ``iteration % R``.  Writing the host integer ``iteration`` copies it to
+    the card, which waits for the card (the read ``snapshot_dists``)."""
     row = iteration % db.ring_iters
 
     def set_row(ring, value):
@@ -208,7 +210,8 @@ def snapshot_dists(db, iteration: int, model: GmmState):
         dist_means=set_row(db.dist_means, model.means),
         dist_chols=set_row(db.dist_chols, model.chols),
         dist_inv_chols=set_row(db.dist_inv_chols, model.inv_chols),
-        dist_block_iter=set_row(db.dist_block_iter, iteration))
+        dist_block_iter=read(lambda: set_row(db.dist_block_iter, iteration),
+                             "snapshot_dists"))
 
 
 def write_ring(ring, write_pos, reservoir, iteration: int, rows, valid,
@@ -452,7 +455,7 @@ def repad_db(db: SampleDbState, new_max_components: int, new_capacity: int
             dist_chols=torch.cat([db.dist_chols, pad_chol], 1),
             dist_inv_chols=torch.cat([db.dist_inv_chols, pad_chol], 1))
     if s_new > s_old:
-        written = int(db.write_pos)
+        written = read(db.write_pos, "repad")
         n_keep = min(written, s_old)
         pos = torch.arange(n_keep, device=dev) + (written - n_keep)
         old_idx, new_idx = pos % s_old, pos % s_new

@@ -56,6 +56,7 @@ from gmmvi_tpu_torch.optimization import sample_db as db_ops
 from gmmvi_tpu_torch.optimization.sample_window import (
     SampleWindow, background, count_bins, select_dists)
 from gmmvi_tpu_torch.parallel import reduce
+from gmmvi_tpu_torch.utils.profiling import read
 
 # the leaves with a leading shard axis; the others are replicated
 SHARDED_FIELDS = ("samples", "target_lnpdfs", "target_grads", "sample_iter",
@@ -425,7 +426,7 @@ def repad_db(db: ShardedSampleDbState, new_max_components: int,
             dist_chols=torch.cat([db.dist_chols, pad_chol], 1),
             dist_inv_chols=torch.cat([db.dist_inv_chols, pad_chol], 1))
     if s_new > s_old:
-        written = db.write_pos.tolist()
+        written = read(db.write_pos.tolist, "repad")
 
         def relay(old_arr, fill=0):
             arr = torch.full((db.n_local, s_new) + tuple(old_arr.shape[2:]),

@@ -26,6 +26,7 @@ from gmmvi_tpu_torch.ops.background import background_logpdf
 from gmmvi_tpu_torch.ops.density_large import MAX_D as KERNEL_MAX_D
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 from gmmvi_tpu_torch.parallel import reduce
+from gmmvi_tpu_torch.utils.profiling import read
 
 
 @dataclass
@@ -83,13 +84,19 @@ def select_dists(counts: torch.Tensor, u: int, dist_key: torch.Tensor):
     """The ``u`` most used distributions in ``lax.top_k``'s order (by count,
     ties to the lower key): ``(top_counts, top_keys, sel_mask, selected)``
     where ``selected`` says for each sample whether its distribution is among
-    them."""
+    them.  Marking them with a host ``True`` copies it to the card, which
+    waits for the card (the read ``select_dists``)."""
     nkeys = counts.shape[0]
     top_keys = torch.sort(counts, descending=True, stable=True).indices[:u]
     top_counts = counts[top_keys]
     sel_mask = top_counts > 0
     table = torch.zeros(nkeys + 1, dtype=torch.bool, device=counts.device)
-    table[torch.where(sel_mask, top_keys, nkeys)] = True
+    marked = torch.where(sel_mask, top_keys, nkeys)
+
+    def mark():
+        table[marked] = True
+
+    read(mark, "select_dists")
     selected = table[torch.clamp(dist_key.long(), max=nkeys)]
     return top_counts, top_keys, sel_mask, selected
 

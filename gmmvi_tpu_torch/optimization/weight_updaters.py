@@ -7,7 +7,8 @@
 The expected log ratios are taken under the updated components (kernel B2
 on the card).  The weight search is the reference's log-space bisection
 over the tempered-softmax stepsize, at most 50 trips; its loop runs on the
-host and reads one "done" flag per trip.  With standard importance
+host and reads one "done" flag per trip (the read ``weight_search``,
+its trips counted under ``weight_search.trips``).  With standard importance
 weights the expected log ratios are the reference's stable expectation, a
 signed log-sum-exp over the samples.
 """
@@ -24,6 +25,7 @@ from gmmvi_tpu_torch.models.gmm import (GmmState,
 from gmmvi_tpu_torch.models.meta import MetaState
 from gmmvi_tpu_torch.ops.stable import NEG_INF, masked_logsumexp
 from gmmvi_tpu_torch.parallel import reduce
+from gmmvi_tpu_torch.utils.profiling import count, read
 
 LOG_WEIGHT_FLOOR = -69.07  # weights floored at 1e-30
 MAX_TRIPS = 50
@@ -105,7 +107,9 @@ def trust_region_weight_update(model: GmmState, meta: MetaState,
                                temperature: float):
     """Largest tempered-softmax step whose KL to the current weights stays
     within ``kl_bound``: a log-space bracket over eta in [e^-45, e^45].
-    Keeps the old weights when no feasible eta is found."""
+    Keeps the old weights when no feasible eta is found.  The bracket's
+    three starting values are host values copied to the card, each a wait
+    for the card (the reads ``weight_search.start``)."""
     mask = model.mask
     log_weights = torch.where(mask, model.log_weights, NEG_INF)
     rewards = torch.where(mask, elr, NEG_INF)
@@ -113,13 +117,17 @@ def trust_region_weight_update(model: GmmState, meta: MetaState,
     def kl_at(eta):
         return _tr_weight_kl(eta, log_weights, mask, rewards, temperature)
 
-    f32 = dict(dtype=torch.float32, device=log_weights.device)
-    lower = torch.tensor(-45.0, **f32)
-    upper = torch.tensor(45.0, **f32)
+    def start(value, dtype=torch.float32):
+        return read(lambda: torch.tensor(value, dtype=dtype,
+                                         device=log_weights.device),
+                    "weight_search.start")
+
+    lower = start(-45.0)
+    upper = start(45.0)
     log_eta = 0.5 * (lower + upper)
     lw = log_weights
-    upper_ok = torch.tensor(False, device=log_weights.device)
-    for _ in range(MAX_TRIPS):
+    upper_ok = start(False, torch.bool)
+    for trips in range(1, MAX_TRIPS + 1):
         new_eta = torch.exp(log_eta)
         width_stop = torch.abs(torch.exp(upper) - torch.exp(lower)) < 1e-1
         new_kl, new_lw = kl_at(new_eta)
@@ -133,8 +141,9 @@ def trust_region_weight_update(model: GmmState, meta: MetaState,
         upper_ok = torch.where(adv & ~good, upper_ok | go_up, upper_ok)
         lower, upper = lower_n, upper_n
         log_eta = 0.5 * (upper + lower)
-        if bool(width_stop | (adv & good)):
+        if read(width_stop | (adv & good), "weight_search"):
             break
+    count("weight_search.trips", trips)
 
     converged = lower == upper
     _, lw_u = kl_at(torch.exp(upper))

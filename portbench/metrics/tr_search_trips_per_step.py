@@ -1,0 +1,23 @@
+"""Trips of the component trust-region search per iteration: the program's
+``tr_search.trips`` counter (``gmmvi_tpu_torch.utils.profiling``: the most
+trips any component's search took in a step, gathered on the card for
+the fused search) over the profiled block.  Moves ``step_device_ms``."""
+from gmmvi_tpu_torch.utils import profiling
+
+UNIT = "trips/step"
+
+
+def read(record: dict, summary=None):
+    """``summary`` is the program's (``profiling.summary()`` by default);
+    None where the program keeps no such record or its ``train_iter`` spans
+    are not the profiled block's iterations."""
+    if summary is None:
+        take = getattr(profiling, "summary", None)
+        if take is None:
+            return None
+        summary = take()
+    steps = summary["spans"].get("train_iter", {}).get("count")
+    if not steps or steps != record["profiled_iterations"]:
+        return None
+    trips = summary["counters"].get("tr_search.trips")
+    return None if trips is None else trips / steps
