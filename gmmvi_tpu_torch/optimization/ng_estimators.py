@@ -16,7 +16,10 @@ centred on the active means' centroid ``c`` against float cancellation, so
 the ``[Kmax, N, D]`` precision-times-difference array is never formed.  The
 moments ``sum_n w g (x - c)^T`` come from kernel B7 (``ops/stein.py``) for
 64 < D <= 512 and N >= 512, where the JAX package uses its kernel, and from
-its plain version elsewhere.  With standard importance weights the
+its plain version elsewhere: at D <= 64 that forms the outer products
+``g (x - c)^T`` as ``[rows, D^2]`` in slabs of the window (one at the
+planar robot's) and contracts them with the weights in one fp32 product
+``[K, rows] @ [rows, D^2]``.  With standard importance weights the
 estimate is the reference's stable expectation instead: per output element
 a signed log-sum-exp over the samples, one component at a time
 (:func:`_stein_standard_iw`, plain torch, as in the JAX package).

@@ -735,6 +735,33 @@ def test_stein_smom_kernel_matches_plain(dev, k, d, n):
     assert (err <= 1e-5 * scale).all(), (err / scale).tolist()
 
 
+def test_stein_smom_plain_at_planar_robot_shape(dev):
+    """The plain moments at planar_robot_4's window (K 600, D 10, N 180,000:
+    one slab of [N, D^2] outer products and one fp32 product, TF32 off)
+    against float64 within 1e-5 of each component's largest entry; the
+    weightless slots give exact zeros."""
+    from gmmvi_tpu_torch.ops import stein
+
+    k, n, d = 600, 180_000, 10
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = torch.rand(k, n, generator=g, device=dev) ** 8
+    w[:, torch.rand(n, generator=g, device=dev) < 0.2] = 0.0
+    live = torch.arange(k, device=dev) % 2 == 0
+    w[~live] = 0.0
+    w = w / w.sum(1, keepdim=True).clamp(min=1e-30)
+    gr = torch.randn(n, d, generator=g, device=dev) * 10
+    xc = torch.randn(n, d, generator=g, device=dev) * 3
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got = stein.stein_smom_plain(w, gr, xc)
+    want = torch.einsum("kn,nd,ne->kde", w.double(), gr.double(),
+                        xc.double())
+    assert got.dtype == torch.float32
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    scale = want[live].abs().reshape(-1, d * d).amax(1)
+    err = (got[live].double() - want[live]).abs().reshape(-1, d * d).amax(1)
+    assert (err <= 1e-5 * scale).all(), float((err / scale).max())
+
+
 EDGE_DIMS = [65, 72, 136, 300, 301, 512]
 
 

@@ -183,6 +183,11 @@ def test_search_trips_are_the_searches(block):
         == counters["weight_search.trips"]
 
 
+def test_stein_moments_take_one_slab_a_step(block):
+    # the plain moments at D = 5 contract the whole window in one slab
+    assert block["summary"]["counters"]["stein.moment_slabs"] == STEPS
+
+
 def test_gather_max_sums_step_maxima_across_folds(monkeypatch):
     timers = profiling.PhaseTimers()
     monkeypatch.setattr(profiling, "GATHER_SLOTS", 3)
